@@ -1,0 +1,137 @@
+"""Low-precision-aware Adam (bf16 embedding tables).
+
+Port of ``recommender_tpu/core/optim.py`` (``scale_by_adam_sr``,
+``adam_sr``, ``apply_updates_sr``) as one ``torch.optim.Optimizer``,
+``AdamSR``, over the plain functions below:
+
+* moment math runs in f32 whatever the storage dtype;
+* moments are stored in the param's dtype (or ``moment_dtype``) and written
+  back with stochastic rounding, so the expected trajectory stays exact;
+* updates stay f32, and the param write is an f32 add with a
+  stochastic-rounded store for low-precision params.
+
+Stochastic rounding applies exactly to the low-precision leaves, which is
+what the JAX Trainer's automatic mode resolves to: for an all-f32 param
+list every rounding is an identity cast and the step is plain Adam
+(``optax.adam``) to f32 roundoff.
+
+Keys: leaf ``i`` (a param's index in the list, which the Trainer orders as
+JAX flattens the flax tree) rounds its moments with
+``fold_in(fold_in(prng_key(seed), count), 2i)`` and ``2i + 1`` and its
+param write with ``fold_in(write_key, i)`` — the JAX package's
+derivations, reproduced word for word by ``ops.rounding``. So for the same
+seed, step and leaf both packages draw the same rounding noise.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from recommender_tpu_torch.ops.rounding import (
+    Key,
+    fold_in,
+    is_low_precision,
+    prng_key,
+    stochastic_round_to,
+)
+
+
+def scale_by_adam_sr(
+    grads: Sequence[torch.Tensor],
+    mu: Sequence[torch.Tensor],
+    nu: Sequence[torch.Tensor],
+    count: int,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    seed: int = 0,
+) -> tuple[list, list, list]:
+    """One Adam moment step. ``count`` is the number of steps taken before
+    this one. Returns ``(f32 updates, new mu, new nu)``; each new moment
+    keeps its old storage dtype, written with stochastic rounding when that
+    dtype is low-precision."""
+    # bias corrections in f32 on the host, as JAX computes them in f32
+    t = np.float32(count + 1)
+    c1 = float(np.float32(1.0) - np.float32(b1) ** t)
+    c2 = float(np.float32(1.0) - np.float32(b2) ** t)
+    base_key = fold_in(prng_key(seed), count)
+    out, new_mu, new_nu = [], [], []
+    for i, (g, m, n) in enumerate(zip(grads, mu, nu)):
+        gf = g.to(torch.float32)
+        mf = b1 * m.to(torch.float32) + (1.0 - b1) * gf
+        nf = b2 * n.to(torch.float32) + (1.0 - b2) * gf * gf
+        out.append((mf / c1) / (torch.sqrt(nf / c2) + eps))
+        if is_low_precision(m.dtype):
+            new_mu.append(stochastic_round_to(mf, m.dtype, fold_in(base_key, 2 * i)))
+            new_nu.append(stochastic_round_to(nf, n.dtype, fold_in(base_key, 2 * i + 1)))
+        else:
+            new_mu.append(mf.to(m.dtype))
+            new_nu.append(nf.to(n.dtype))
+    return out, new_mu, new_nu
+
+
+def apply_updates_sr(
+    params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor], key: Key
+) -> list:
+    """``p + u`` with an f32 add and a stochastic-rounded write for
+    low-precision leaves (unbiased: sub-ulp Adam updates land in
+    expectation instead of rounding away)."""
+    out = []
+    for i, (p, u) in enumerate(zip(params, updates)):
+        if is_low_precision(p.dtype):
+            summed = p.to(torch.float32) + u.to(torch.float32)
+            out.append(stochastic_round_to(summed, p.dtype, fold_in(key, i)))
+        else:
+            out.append(p + u.to(p.dtype))
+    return out
+
+
+class AdamSR(torch.optim.Optimizer):
+    """Adam with f32 moment math, moment storage in the param dtype (or
+    ``moment_dtype``), and stochastic-rounded moment and param writes for
+    low-precision leaves; f32 leaves take plain Adam. ``step(write_key)``
+    takes the param-write key, which the Trainer derives from its step
+    counter. The order of ``params`` fixes each leaf's rounding keys."""
+
+    def __init__(
+        self,
+        params,
+        lr: float = 1e-3,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        seed: int = 0,
+        moment_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__(list(params), dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        if len(self.param_groups) != 1:
+            raise ValueError("AdamSR takes one parameter group")
+        self.seed = seed
+        self.count = 0  # Adam steps taken (optax ScaleByAdamState.count)
+        for p in self.param_groups[0]["params"]:
+            store = moment_dtype if moment_dtype is not None else p.dtype
+            self.state[p] = {
+                "mu": torch.zeros(p.shape, dtype=store, device=p.device),
+                "nu": torch.zeros(p.shape, dtype=store, device=p.device),
+            }
+
+    @torch.no_grad()
+    def step(self, write_key: Key):
+        group = self.param_groups[0]
+        params = group["params"]
+        # a param that took no part in the loss has a zero gradient, as in JAX
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        mu = [self.state[p]["mu"] for p in params]
+        nu = [self.state[p]["nu"] for p in params]
+        upd, new_mu, new_nu = scale_by_adam_sr(
+            grads, mu, nu, self.count, group["b1"], group["b2"], group["eps"], self.seed
+        )
+        upd = [-group["lr"] * u for u in upd]  # optax.scale_by_learning_rate
+        new_params = apply_updates_sr(params, upd, write_key)
+        for p, m, n, m_new, n_new, p_new in zip(params, mu, nu, new_mu, new_nu, new_params):
+            m.copy_(m_new)
+            n.copy_(n_new)
+            p.copy_(p_new)
+        self.count += 1

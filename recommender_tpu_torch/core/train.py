@@ -1,0 +1,227 @@
+"""The training engine: step, eval cadence, logging, divergence guard.
+
+Port of ``recommender_tpu/core/train.py`` for one device. A step is the
+eager PyTorch sequence forward → backward (the embedding gradient through
+the sorted scatter-add kernel) → ``AdamSR`` step, which writes the params
+in place.
+
+Protocol (``models.tasks``): ``loss_fn(batch, train) -> (per_example_loss
+[B], aux dict)`` and ``eval_fn(batch) -> (scores [B], labels [B])``, both
+closing over the model. The engine takes the mean of the per-example loss.
+
+``TrainConfig`` holds only the fields this engine implements; any other
+field of the JAX config is a ``TypeError`` at construction rather than a
+silently ignored setting. Checkpoints, gradient accumulation, per-path LR
+scales, early stopping and the background prefetcher belong to later
+slices; the split step is a TPU layout workaround and has no counterpart.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from recommender_tpu_torch.convert import jax_leaf_order
+from recommender_tpu_torch.core.metrics import (
+    AUCState,
+    MeanState,
+    accuracy_update,
+    auc_from_state,
+    auc_update,
+    exact_auc,
+    mean_from_state,
+    mean_update,
+)
+from recommender_tpu_torch.core.optim import AdamSR
+from recommender_tpu_torch.nn.losses import binary_cross_entropy
+from recommender_tpu_torch.ops.rounding import fold_in, prng_key
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    learning_rate: float = 1e-3
+    log_every: int = 100
+    eval_every: int = 1000
+    seed: int = 0
+    # Raise TrainingDiverged on a NaN/Inf loss at a log point (where the
+    # loss is fetched to the host anyway, so it costs nothing).
+    nan_guard: bool = True
+    # Adam moment storage dtype: None = the param's own dtype;
+    # "float32" = full-precision moments.
+    moment_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if callable(self.learning_rate):
+            raise TypeError("learning-rate schedules are not ported yet; pass a float")
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: AdamSR
+
+
+class TrainingDiverged(RuntimeError):
+    """Raised by the fit loop's nan_guard on a non-finite loss."""
+
+
+class Trainer:
+    """Single-device engine (see the module docstring for the protocol)."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        cfg: TrainConfig,
+        eval_fn: Optional[Callable] = None,
+        *,
+        device,
+    ):
+        self.loss_fn = loss_fn
+        self.eval_fn = eval_fn
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._sr_key = fold_in(prng_key(cfg.seed), 0x5EED)
+
+    # ------------------------------------------------------------------- init
+    def init_state(self, init_model_fn: Callable[[], nn.Module]) -> TrainState:
+        """``init_model_fn() -> model`` on this trainer's device.
+
+        Builds ``AdamSR`` over the params in JAX's flatten order, so that
+        each param's rounding keys match the JAX package's. Stochastic
+        rounding applies to the low-precision params — the JAX Trainer's
+        automatic ``stochastic_round`` mode."""
+        model = init_model_fn()
+        named = jax_leaf_order(model)
+        for name, p in named:
+            if p.device != self.device:
+                raise ValueError(f"param {name} is on {p.device}, trainer on {self.device}")
+        mdt = self.cfg.moment_dtype
+        optimizer = AdamSR(
+            [p for _, p in named],
+            lr=self.cfg.learning_rate,
+            seed=self.cfg.seed,
+            moment_dtype=None if mdt is None else getattr(torch, mdt),
+        )
+        return TrainState(step=0, model=model, optimizer=optimizer)
+
+    # ------------------------------------------------------------------- step
+    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        """Forward, backward, optimizer and param write. Metrics stay device
+        tensors until a log point reads them."""
+        per_ex, aux = self.loss_fn(batch, True)
+        loss = torch.mean(per_ex)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step(fold_in(self._sr_key, state.step))
+        metrics = dict(aux)
+        metrics["loss"] = loss.detach()
+        return dataclasses.replace(state, step=state.step + 1), metrics
+
+    # ------------------------------------------------------------------- loop
+    def fit(
+        self,
+        state: TrainState,
+        train_iter: Iterable,
+        steps: int,
+        eval_iter_fn: Optional[Callable[[], Iterable]] = None,
+        eval_batches: int = 0,
+        log_fn: Optional[Callable[[dict], None]] = None,
+    ) -> tuple[TrainState, list[dict]]:
+        cfg = self.cfg
+        history: list[dict] = []
+        t0 = time.perf_counter()
+        window_examples = 0
+        for i, batch in enumerate(train_iter):
+            if i >= steps:
+                break
+            batch = self.put_batch(batch)
+            state, metrics = self.train_step(state, batch)
+            window_examples += _batch_size(batch)
+            step = i + 1
+            if step % cfg.log_every == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                if cfg.nan_guard and not math.isfinite(metrics.get("loss", 0.0)):
+                    raise TrainingDiverged(
+                        f"non-finite loss {metrics['loss']} at step {step}; "
+                        "restart with a lower learning rate"
+                    )
+                dt = time.perf_counter() - t0
+                metrics["examples_per_s"] = window_examples / max(dt, 1e-9)
+                metrics["step"] = step
+                history.append(metrics)
+                if log_fn:
+                    log_fn(metrics)
+                t0 = time.perf_counter()
+                window_examples = 0
+            if eval_iter_fn is not None and cfg.eval_every and step % cfg.eval_every == 0:
+                ev = self.evaluate(state, eval_iter_fn(), eval_batches)
+                ev["step"] = step
+                history.append(ev)
+                if log_fn:
+                    log_fn(ev)
+                # eval wall-clock must not pollute the throughput window
+                t0 = time.perf_counter()
+                window_examples = 0
+        return state, history
+
+    @torch.no_grad()
+    def evaluate(
+        self, state: TrainState, batches: Iterable, limit: int = 0, exact: bool = False
+    ) -> dict:
+        """Streaming histogram AUC, BCE and accuracy accumulated on the
+        device; ``exact=True`` also gathers scores and labels to the host
+        for the sort-based exact AUC."""
+        if self.eval_fn is None:
+            raise ValueError("no eval_fn configured")
+        auc = AUCState.init(device=self.device)
+        mloss = MeanState.init(device=self.device)
+        acc = MeanState.init(device=self.device)
+        n = 0
+        all_scores, all_labels = [], []
+        for batch in batches:
+            if limit and n >= limit:
+                break
+            batch = self.put_batch(batch)
+            scores, labels = self.eval_fn(batch)
+            auc = auc_update(auc, scores, labels)
+            mloss = mean_update(mloss, binary_cross_entropy(scores, labels))
+            acc = accuracy_update(acc, scores, labels)
+            if exact:
+                all_scores.append(scores.reshape(-1).cpu().numpy())
+                all_labels.append(labels.reshape(-1).cpu().numpy())
+            n += 1
+        if n == 0:
+            raise ValueError(
+                "evaluate(): iterator yielded no batches — check that the eval "
+                "set is at least one (drop-remainder) batch long"
+            )
+        out = {
+            "eval_auc": float(auc_from_state(auc)),
+            "eval_loss": float(mean_from_state(mloss)),
+            "eval_accuracy": float(mean_from_state(acc)),
+            "eval_batches": n,
+        }
+        if exact:
+            out["eval_auc_exact"] = exact_auc(
+                np.concatenate(all_scores), np.concatenate(all_labels)
+            )
+        return out
+
+    def put_batch(self, batch: dict) -> dict:
+        """Copy a host (numpy) batch to the trainer's device."""
+        return {
+            k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()
+        }
+
+
+def _batch_size(batch: dict) -> int:
+    first = next(iter(batch.values()), None)
+    return int(first.shape[0]) if first is not None else 0

@@ -1,0 +1,176 @@
+"""Embedding hot path: gather forward, sorted scatter-add backward.
+
+Port of ``recommender_tpu/ops/embedding_kernels.py``. The backward of every
+embedding lookup is one hand-written CUDA kernel, ``csrc/sorted_scatter_add.cu``
+(it replaces the Pallas ``_packed_scatter_kernel``): a deterministic sorted
+segment sum of the cotangent rows into a fresh f32 ``[V, D]`` table. The
+JAX package's other backward routes (the padded-width XLA scatter and the
+row and volume gates that choose between routes) exist for the TPU's lane
+width and are not ported.
+
+``sorted_scatter_add`` launches the kernel for CUDA tensors and counts each
+launch in ``sorted_scatter_add.launches``. For CPU tensors it computes the
+same function with ``sorted_scatter_add_ref``, the plain PyTorch version
+that the tests and ``chip_smoke.py`` hold the kernel against.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from recommender_tpu_torch.ops import _build
+
+
+def _kernel_fn():
+    """The C entry of ``csrc/sorted_scatter_add.cu``, built at first use."""
+    fn = _build.load("sorted_scatter_add").rtt_sorted_scatter_add
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, vp, vp, vp, i64, i32, i64, i32, i32, i32, vp]
+    fn.restype = i32
+    return fn
+
+
+def _check_scatter_args(sorted_ids, updates, vocab_size, order, kernel_dtype):
+    if sorted_ids.dim() != 1 or sorted_ids.dtype != torch.int32:
+        raise ValueError(
+            f"sorted_ids must be 1-D int32, got {sorted_ids.dtype} {tuple(sorted_ids.shape)}"
+        )
+    if updates.dim() != 2 or updates.shape[0] != sorted_ids.shape[0]:
+        raise ValueError(
+            f"updates must be [N, D] with N = {sorted_ids.shape[0]}, got {tuple(updates.shape)}"
+        )
+    if updates.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"updates must be float32 or bfloat16, got {updates.dtype}")
+    if kernel_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel_dtype must be float32 or bfloat16, got {kernel_dtype}")
+    if vocab_size <= 0:
+        raise ValueError(f"vocab_size must be positive, got {vocab_size}")
+    tensors = [sorted_ids, updates]
+    if order is not None:
+        if order.shape != sorted_ids.shape or order.dtype != torch.int32:
+            raise ValueError(
+                f"order must be int32 of shape {tuple(sorted_ids.shape)}, "
+                f"got {order.dtype} {tuple(order.shape)}"
+            )
+        tensors.append(order)
+    if any(t.device != updates.device for t in tensors):
+        raise ValueError("sorted_ids, updates and order must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sorted_ids, updates and order must be contiguous")
+
+
+def sorted_scatter_add_ref(
+    sorted_ids: torch.Tensor,
+    updates: torch.Tensor,
+    vocab_size: int,
+    order: torch.Tensor | None = None,
+    kernel_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``sorted_scatter_add``: ``index_add_`` of
+    the (permuted, ``kernel_dtype``-rounded) updates over the ids in
+    ``[0, vocab_size)``."""
+    upd = updates if order is None else updates.index_select(0, order.long())
+    upd = upd.to(kernel_dtype).to(torch.float32)
+    ids = sorted_ids.long()
+    keep = (ids >= 0) & (ids < vocab_size)
+    out = torch.zeros(
+        (vocab_size, updates.shape[1]), dtype=torch.float32, device=updates.device
+    )
+    return out.index_add_(0, ids[keep], upd[keep])
+
+
+def sorted_scatter_add(
+    sorted_ids: torch.Tensor,
+    updates: torch.Tensor,
+    vocab_size: int,
+    order: torch.Tensor | None = None,
+    kernel_dtype=torch.float32,
+    precision=None,
+) -> torch.Tensor:
+    """Σ updates into a fresh ``[vocab_size, D]`` f32 table.
+
+    ``sorted_ids`` [N] ascending int32; entries outside ``[0, vocab_size)``
+    (e.g. the 2^30 pad id) are dropped. ``updates`` [N, D] f32 or bf16:
+    already in sorted order when ``order`` is None; otherwise in original
+    order, with ``order`` [N] int32 the permutation such that
+    ``updates[order]`` is sorted (the kernel reads it as a row gather).
+
+    ``kernel_dtype=torch.bfloat16`` rounds each contribution to bf16 before
+    the f32 accumulation. Accumulation is always exact f32; ``precision``
+    is accepted for signature parity with the JAX function, whose TPU
+    DEFAULT precision rounded operands to bf16 (``PARITY.md``).
+
+    CPU tensors take ``sorted_scatter_add_ref``; CUDA tensors launch the
+    kernel, or raise.
+    """
+    del precision
+    _check_scatter_args(sorted_ids, updates, vocab_size, order, kernel_dtype)
+    if updates.device.type == "cpu":
+        return sorted_scatter_add_ref(
+            sorted_ids, updates, vocab_size, order=order, kernel_dtype=kernel_dtype
+        )
+    if updates.device.type != "cuda":
+        raise ValueError(f"sorted_scatter_add: unsupported device {updates.device}")
+    n, d = updates.shape
+    out = torch.zeros((vocab_size, d), dtype=torch.float32, device=updates.device)
+    if n == 0:
+        return out
+    upd_bf16 = updates.dtype == torch.bfloat16
+    round_bf16 = kernel_dtype == torch.bfloat16 and not upd_bf16
+    vec = 16 // updates.element_size()  # one 16-byte load per column group
+    if d % vec or updates.data_ptr() % 16:
+        vec = 1
+    fn = _kernel_fn()
+    with torch.cuda.device(updates.device):
+        err = fn(
+            sorted_ids.data_ptr(),
+            updates.data_ptr(),
+            None if order is None else order.data_ptr(),
+            out.data_ptr(),
+            n, d, vocab_size, int(upd_bf16), int(round_bf16), vec,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sorted_scatter_add kernel launch failed: CUDA error {err}")
+    sorted_scatter_add.launches += 1
+    return out
+
+
+sorted_scatter_add.launches = 0
+
+
+def scatter_add_dense(ids: torch.Tensor, updates: torch.Tensor, vocab_size: int):
+    """Sort + kernel scatter: the full sparse-gradient path (any id shape)."""
+    flat = ids.reshape(-1).to(torch.int32)
+    upd = updates.reshape(-1, updates.shape[-1]).contiguous()
+    sorted_ids, order = torch.sort(flat, stable=True)
+    return sorted_scatter_add(
+        sorted_ids, upd, vocab_size, order=order.to(torch.int32)
+    )
+
+
+class _EmbeddingLookup(torch.autograd.Function):
+    """``index_select`` gather forward; the backward sorts the flat ids
+    (stable) and sums the cotangent rows with the scatter-add kernel, then
+    casts the gradient to the table dtype."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab = table.shape[0]
+        ctx.table_dtype = table.dtype
+        flat = table.index_select(0, ids.reshape(-1))
+        return flat.reshape(*ids.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, cot):
+        (ids,) = ctx.saved_tensors
+        grad = scatter_add_dense(ids, cot, ctx.vocab)
+        return grad.to(ctx.table_dtype), None
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` ([*ids.shape, D]) whose table gradient is computed by
+    the sorted scatter-add kernel."""
+    return _EmbeddingLookup.apply(table, ids)
