@@ -1,29 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-The main path is DLRM training at ``bench.py`` width: a 1,000,000 x 16
-embedding table stored in bf16 with stochastic-rounding Adam, bottom MLP
-13→512→256→64→16, top MLP (729+16)→512→256→1, batch 8192 (212,992 ids a
-step), lr 1e-3, on ``SyntheticCTR`` batches. Weights are random, drawn from
-seed 0.
+Two paths, each at the full width of a model the repository supports, with
+random weights drawn from seed 0:
+
+* DLRM training at ``bench.py`` width: a 1,000,000 x 16 embedding table
+  stored in bf16 with stochastic-rounding Adam, bottom MLP 13→512→256→64→16,
+  top MLP (729+16)→512→256→1, batch 8192 (212,992 ids a step), lr 1e-3, on
+  ``SyntheticCTR`` batches;
+* BST training at ``benchmarks/bench_models.py::bench_bst`` width
+  (``bst_amazon_b1024_T100``, f32 tables): item table 400,000 x 18, cat
+  table 1,500 x 18, 2 post-LN blocks of 4 heads (Dh 9, FFN 144) over
+  history + target (L 101), max_len 512, MLP 72→200→80→1 with input
+  BatchNorm, batch 1024, lr 1e-3, on ``SyntheticSequence`` batches, with
+  flash attention (the K2 kernels) on both blocks.
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (k2 one per shape):
 
-1. device   — the card, its power limit, torch and CUDA versions; TF32 off.
-2. build    — build and load the sorted scatter-add kernel (K1).
-3. k1       — K1 against its plain PyTorch version at the DLRM shape
-              (212,992 ids into [1M, 16]): f32 and bf16 rounding, with and
-              without ``order``, with ids >= V; bitwise repeatability;
-              kernel and plain times (CUDA events, median of 25).
-4. train    — 50 Trainer steps at full width, then ``evaluate`` on 20
-              held-out batches; K1's launch count must equal the steps.
-5. card_cpu — a small f32-table DLRM for 3 steps from one init on the card
-              and on the CPU; the losses must agree.
+1. device       — the card, its power limit, torch and CUDA versions; TF32 off.
+2. build        — build and load K1 (sorted scatter-add) and K2 (flash
+                  attention), one ``nvcc`` per source, started together.
+3. k1           — K1 against its plain PyTorch version at the DLRM shape
+                  (212,992 ids into [1M, 16]): f32 and bf16 rounding, with
+                  and without ``order``, with ids >= V; and at BST's history
+                  lookup (102,400 ids into [400,000, 18]); bitwise
+                  repeatability; kernel and plain times (CUDA events,
+                  median of 25).
+4. k2           — K2 (forward, dK/dV, dQ) against ``flash_mha_ref`` at BST's
+                  shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a real
+                  batch) and at the TPU probe's B 128, L 1001, H 4 with
+                  Dh 9 and 64: errors, bitwise repeatability, and times of
+                  the forward and of forward + backward against the plain
+                  version (CUDA events, median of 25).
+5. train        — 50 DLRM Trainer steps at full width, then ``evaluate`` on
+                  20 held-out batches; K1's launch count must equal the steps.
+6. card_cpu     — a small f32-table DLRM for 3 steps from one init on the
+                  card and on the CPU; the losses must agree.
+7. bst_train    — 50 BST Trainer steps at full width with flash attention,
+                  then ``evaluate`` on 20 held-out batches; the K1 and K2
+                  launch counts must be exact. Then the same 50 steps with
+                  the plain attention from the same init: the per-step
+                  losses must agree.
+8. bst_card_cpu — a small BST for 3 steps from one init on the card (K2)
+                  and on the CPU (its plain version); the losses must agree.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -32,21 +56,24 @@ at once where no CUDA device is available.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
-from recommender_tpu_torch.data import SyntheticCTR, batch_iterator
-from recommender_tpu_torch.models import DLRM, init_model, make_ctr_task
+from recommender_tpu_torch.data import SyntheticCTR, SyntheticSequence, batch_iterator
+from recommender_tpu_torch.models import BST, DLRM, init_model, make_ctr_task
 from recommender_tpu_torch.ops import _build
 from recommender_tpu_torch.ops import embedding_kernels as ek
+from recommender_tpu_torch.ops import flash_attention as fa
 
 VOCAB = 1_000_000
 DIM = 16
@@ -70,8 +97,40 @@ AUC_MARGIN = 0.2
 # bf16 GEMMs round some products to a different bf16 neighbour.
 CARD_CPU_LOSS_TOL = 2e-3
 
+# BST at bench_models.py::bench_bst width (bst_amazon_b1024_T100, f32 tables)
+BST_ITEMS = 400_000
+BST_CATS = 1500
+BST_T = 100
+BST_BATCH = 1024
+# K2 vs flash_mha_ref, as a share of the largest magnitude of the plain
+# result: the kernels' exp2 differs from torch's exp by a few ulp and the
+# sums run in another order (tests/test_torch_flash_attention.py).
+K2_FWD_REL_TOL = 1e-5
+K2_BWD_REL_TOL = 1e-4
+# Eval AUC of the 50-step BST run must clear 0.5 by this margin. Measured
+# on an H100 80GB HBM3 (700 W limit): 0.50371 for these seeds. At lr 1e-3,
+# 50 steps of b1024 learn the label rate and little else on this data (the
+# loss falls 0.713 → 0.695), so the margin is 0: the check catches a head
+# that scores below chance. That training is right is checked by the
+# flash and plain runs agreeing, and by bst_card_cpu.
+BST_AUC_MARGIN = 0.0
+# Flash vs plain attention, 50 steps from one init (measured on that card:
+# losses within 1.1e-3; the kernels' last-ulp differences grow through
+# Adam, as in tests/test_torch_bst.py): per-step losses and eval AUC.
+BST_PATHS_LOSS_TOL = 1e-2
+BST_PATHS_AUC_TOL = 5e-3
+
 K1_SOURCE = "recommender_tpu_torch/ops/csrc/sorted_scatter_add.cu"
 K1_REPLACES = "recommender_tpu/ops/embedding_kernels.py:213"
+K2_SOURCE = "recommender_tpu_torch/ops/csrc/flash_attention.cu"
+K2_REPLACES = "recommender_tpu/nn/transformer.py:43"
+# the Pallas kernels _flash_mha reaches, in jax 0.9.0's
+# jax/experimental/pallas/ops/tpu/flash_attention.py
+K2_TPU_KERNELS = {
+    "fwd": "flash_attention.py:589 _flash_attention_impl",
+    "bwd_dkv": "flash_attention.py:941 _flash_attention_bwd_dkv",
+    "bwd_dq": "flash_attention.py:1287 _flash_attention_bwd_dq",
+}
 
 
 def emit(phase: str, **fields):
@@ -121,11 +180,15 @@ def phase_device() -> str:
 
 
 def phase_build():
-    cached = _build.library_path("sorted_scatter_add").exists()
+    names = ("sorted_scatter_add", "flash_attention")
+    cached = {n: _build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
-    so = _build.build("sorted_scatter_add")
-    _build.load("sorted_scatter_add")
-    emit("build", kernel="sorted_scatter_add", library=str(so.relative_to(_build.BUILD_DIR.parents[1])),
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+        libs = dict(zip(names, pool.map(_build.build, names)))
+    for name in names:
+        _build.load(name)
+    root = _build.BUILD_DIR.parents[1]
+    emit("build", libraries={n: str(so.relative_to(root)) for n, so in libs.items()},
          cached=cached, seconds=time.perf_counter() - t0)
 
 
@@ -142,11 +205,34 @@ def k1_inputs(device):
     return sorted_ids, order.to(torch.int32), upd
 
 
-def phase_k1(device) -> dict:
-    sorted_ids, order, upd = k1_inputs(device)
-    n_unique = int(torch.unique(sorted_ids[sorted_ids < VOCAB]).numel())
+def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
+    got = ek.sorted_scatter_add(sorted_ids, u, vocab, order=o, kernel_dtype=kd)
+    again = ek.sorted_scatter_add(sorted_ids, u, vocab, order=o, kernel_dtype=kd)
+    want = ek.sorted_scatter_add_ref(sorted_ids, u, vocab, order=o, kernel_dtype=kd)
+    abs_sum = ek.sorted_scatter_add_ref(sorted_ids, u_sorted.abs().contiguous(), vocab)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / (abs_sum + 1e-30)).max())
+    within = bool((err <= K1_REL_TOL * abs_sum + K1_ABS_FLOOR).all())
+    bitwise = bool(torch.equal(got, again))
+    ms = cuda_ms(lambda: ek.sorted_scatter_add(sorted_ids, u, vocab, order=o, kernel_dtype=kd))
+    plain_ms = cuda_ms(lambda: ek.sorted_scatter_add_ref(sorted_ids, u, vocab, order=o, kernel_dtype=kd))
     _, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
-    longest_run = int(counts.max())
+    emit("k1", case=name, n=int(sorted_ids.numel()), vocab=vocab, dim=int(u.shape[1]),
+         unique_ids=int(torch.unique(sorted_ids[sorted_ids < vocab]).numel()),
+         longest_run=int(counts.max()), **info,
+         max_abs_err=max_abs, max_rel_err=max_rel,
+         tolerance=f"|err| <= {K1_REL_TOL} * row abs-sum + {K1_ABS_FLOOR}",
+         within_tolerance=within, bitwise_repeatable=bitwise,
+         ms=ms, plain_ms=plain_ms)
+    check(within, f"K1 {name} disagrees with its plain version (max abs {max_abs})")
+    check(bitwise, f"K1 {name}: two launches differ")
+    results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k1(device, bst_history: np.ndarray) -> dict:
+    sorted_ids, order, upd = k1_inputs(device)
     upd_sorted = upd.index_select(0, order.long()).contiguous()
     upd_bf16 = upd.to(torch.bfloat16)
     cases = [
@@ -160,28 +246,79 @@ def phase_k1(device) -> dict:
     ]
     results = {}
     for name, u, o, kd, u_sorted in cases:
-        got = ek.sorted_scatter_add(sorted_ids, u, VOCAB, order=o, kernel_dtype=kd)
-        again = ek.sorted_scatter_add(sorted_ids, u, VOCAB, order=o, kernel_dtype=kd)
-        want = ek.sorted_scatter_add_ref(sorted_ids, u, VOCAB, order=o, kernel_dtype=kd)
-        abs_sum = ek.sorted_scatter_add_ref(sorted_ids, u_sorted.abs().contiguous(), VOCAB)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        max_abs = float(err.max())
-        max_rel = float((err / (abs_sum + 1e-30)).max())
-        within = bool((err <= K1_REL_TOL * abs_sum + K1_ABS_FLOOR).all())
-        bitwise = bool(torch.equal(got, again))
-        ms = cuda_ms(lambda: ek.sorted_scatter_add(sorted_ids, u, VOCAB, order=o, kernel_dtype=kd))
-        plain_ms = cuda_ms(lambda: ek.sorted_scatter_add_ref(sorted_ids, u, VOCAB, order=o, kernel_dtype=kd))
-        emit("k1", case=name, n=int(sorted_ids.numel()), vocab=VOCAB, dim=DIM,
-             unique_ids=n_unique, longest_run=longest_run,
-             max_abs_err=max_abs, max_rel_err=max_rel,
-             tolerance=f"|err| <= {K1_REL_TOL} * row abs-sum + {K1_ABS_FLOOR}",
-             within_tolerance=within, bitwise_repeatable=bitwise,
-             ms=ms, plain_ms=plain_ms)
-        check(within, f"K1 {name} disagrees with its plain version (max abs {max_abs})")
-        check(bitwise, f"K1 {name}: two launches differ")
-        results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, VOCAB)
+    # BST's item-history lookup backward: one real batch's ids, pad id 0 included
+    raw = torch.from_numpy(bst_history.reshape(-1).astype(np.int32)).to(device)
+    sorted_ids, order = torch.sort(raw, stable=True)
+    order = order.to(torch.int32)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    upd = torch.randn((raw.numel(), 18), generator=g, device=device)
+    _k1_case(results, "bst_item_history_f32_order", sorted_ids, upd, order, torch.float32,
+             upd.index_select(0, order.long()), BST_ITEMS,
+             pad_rows=int((raw == 0).sum()))
     return results
+
+
+def k2_valid(history: np.ndarray, device) -> torch.Tensor:
+    """BST's key mask for a batch: history positions (id != 0), then the
+    target position, always valid."""
+    mask = history != 0
+    valid = np.concatenate([mask, np.ones((len(history), 1), bool)], axis=1)
+    return torch.from_numpy(valid.astype(np.float32)).to(device)
+
+
+def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) -> dict:
+    """K2 against flash_mha_ref at [B, L, heads, head_dim] with ``valid``."""
+    B, L = valid.shape
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v, cot = (torch.randn((B, L, heads, head_dim), generator=g, device=device)
+                    for _ in range(4))
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd(fn):
+        o = fn(*qkv, valid)
+        return (o.detach(), *torch.autograd.grad(o, qkv, cot))
+
+    got, again, want = fwd_bwd(fa.flash_mha), fwd_bwd(fa.flash_mha), fwd_bwd(fa.flash_mha_ref)
+    torch.cuda.synchronize()
+    names = ("o", "dq", "dk", "dv")
+    scale = {n: max(1.0, float(w.abs().max())) for n, w in zip(names, want)}
+    abs_err = {n: float((a - w).abs().max()) for n, a, w in zip(names, got, want)}
+    rel_err = {n: abs_err[n] / scale[n] for n in names}
+    tol = {n: K2_FWD_REL_TOL if n == "o" else K2_BWD_REL_TOL for n in names}
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fa.flash_mha(q, k, v, valid))
+        plain_fwd_ms = cuda_ms(lambda: fa.flash_mha_ref(q, k, v, valid))
+    fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha))
+    plain_fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha_ref))
+    # each backward kernel alone, and the plain backward (dQ, dK, dV together)
+    o = fa.flash_mha(*qkv, valid)
+    _, dkv_fn, dq_fn = fa._kernel_fns()
+    ctx_q, ctx_k, ctx_v, seg, out, lse = o.grad_fn.saved_tensors
+    di = (cot * out).sum(-1).transpose(1, 2).contiguous()
+    scratch = [torch.empty_like(q) for _ in range(3)]
+    common = [t.data_ptr() for t in (ctx_q, ctx_k, ctx_v, seg, cot, lse, di)]
+    dims = (B, L, heads, head_dim, 1.0 / head_dim ** 0.5)
+    dkv_ms = cuda_ms(lambda: fa._launch("dK/dV", dkv_fn, q.device, *common,
+                                        scratch[0].data_ptr(), scratch[1].data_ptr(), *dims))
+    dq_ms = cuda_ms(lambda: fa._launch("dQ", dq_fn, q.device, *common,
+                                       scratch[2].data_ptr(), *dims))
+    o_ref = fa.flash_mha_ref(*qkv, valid)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_ref, qkv, cot, retain_graph=True))
+    del o, o_ref
+    emit("k2", case=name, shape=[B, L, heads, head_dim],
+         valid_share=float(valid.mean()), max_abs_err=abs_err, max_rel_err=rel_err,
+         tolerance=f"|err| <= tol * max(1, max|plain|), tol {tol}",
+         bitwise_repeatable=bitwise, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+         fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms,
+         bwd_dkv_ms=dkv_ms, bwd_dq_ms=dq_ms, plain_bwd_ms=plain_bwd_ms)
+    for n in names:
+        check(rel_err[n] <= tol[n], f"K2 {name}: {n} off by {rel_err[n]} of max|plain|")
+    check(bitwise, f"K2 {name}: two launches differ")
+    return dict(abs_err=abs_err, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                bwd_dkv_ms=dkv_ms, bwd_dq_ms=dq_ms, plain_bwd_ms=plain_bwd_ms)
 
 
 def phase_train(device) -> int:
@@ -204,7 +341,7 @@ def phase_train(device) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ek.sorted_scatter_add.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state, _ = trainer.fit(state, batch_iterator(train, BATCH, seed=SEED), STEPS, log_fn=log_fn)
     ev = trainer.evaluate(state, batch_iterator(test, BATCH, shuffle=False), exact=True)
@@ -259,6 +396,129 @@ def phase_card_cpu(device):
     check(diff <= CARD_CPU_LOSS_TOL, f"card vs CPU losses differ by {diff}")
 
 
+def bst_data() -> tuple[dict, dict]:
+    """Train and held-out ``SyntheticSequence`` batches at bench_bst's shape
+    (sampled once, before any timed window; the negative histories, which
+    BST does not read, are dropped)."""
+    gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=BST_T, seed=SEED)
+    strip = lambda b: {k: v for k, v in b.items() if not k.startswith("neg_")}  # noqa: E731
+    return (strip(gen.sample(STEPS * BST_BATCH, seed=1)),
+            strip(gen.sample(EVAL_BATCHES * BST_BATCH, seed=2)))
+
+
+def k2_counts() -> tuple[int, int, int]:
+    return fa.flash_mha.launches_fwd, fa.flash_mha.launches_bwd_dkv, fa.flash_mha.launches_bwd_dq
+
+
+def reset_counts():
+    ek.sorted_scatter_add.launches = 0
+    fa.flash_mha.launches_fwd = fa.flash_mha.launches_bwd_dkv = fa.flash_mha.launches_bwd_dq = 0
+
+
+def _set_flash(model, on: bool):
+    for blk in model.blocks():
+        blk.use_flash = on
+
+
+def _bst_fit(model, device, train, log_fn):
+    loss_fn, eval_fn = make_ctr_task(model)
+    cfg = TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED)
+    trainer = Trainer(loss_fn, cfg, eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    state, _ = trainer.fit(state, batch_iterator(train, BST_BATCH, seed=SEED), STEPS, log_fn=log_fn)
+    return trainer, state
+
+
+def phase_bst_train(device, train, test) -> dict:
+    model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, device=device)
+    init_model(model, seed=SEED)
+    plain_model = copy.deepcopy(model)
+    _set_flash(model, True)
+    stamps, losses = [], []
+
+    def log_fn(m):
+        stamps.append(time.perf_counter())  # float(loss) at each step syncs
+        losses.append(m["loss"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, state = _bst_fit(model, device, train, log_fn)
+    ev = trainer.evaluate(state, batch_iterator(test, BST_BATCH, shuffle=False), exact=True)
+    torch.cuda.synchronize()
+    k1 = ek.sorted_scatter_add.launches
+    fwd, dkv, dq = k2_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = np.diff(np.array(stamps))[-TIMED_STEPS:] * 1e3
+
+    plain_losses = []
+    plain_trainer, plain_state = _bst_fit(
+        plain_model, device, train, lambda m: plain_losses.append(m["loss"])
+    )
+    plain_ev = plain_trainer.evaluate(
+        plain_state, batch_iterator(test, BST_BATCH, shuffle=False), exact=True
+    )
+    path_diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    auc_diff = abs(ev["eval_auc_exact"] - plain_ev["eval_auc_exact"])
+    want = dict(k1=4 * STEPS, fwd=2 * (STEPS + EVAL_BATCHES), dkv=2 * STEPS, dq=2 * STEPS)
+    emit("bst_train", steps=state.step, batch=BST_BATCH, item_vocab=BST_ITEMS,
+         cat_vocab=BST_CATS, history=BST_T, table_dtype="float32", attention="flash (K2)",
+         first_loss=losses[0], last_loss=losses[-1], losses=losses,
+         ms_per_step_median=float(np.median(step_ms)),
+         ms_per_step_min=float(step_ms.min()), ms_per_step_max=float(step_ms.max()),
+         examples_per_s=BST_BATCH / (float(np.median(step_ms)) / 1e3),
+         eval=ev, peak_memory_gib=peak, seconds=wall, auc_margin=BST_AUC_MARGIN,
+         launches=dict(k1=k1, fwd=fwd, dkv=dkv, dq=dq), expected_launches=want,
+         plain_attention_losses=plain_losses, plain_attention_eval=plain_ev,
+         flash_vs_plain_max_loss_diff=path_diff, flash_vs_plain_auc_diff=auc_diff,
+         flash_vs_plain_tolerance=dict(loss=BST_PATHS_LOSS_TOL, auc=BST_PATHS_AUC_TOL))
+    check(state.step == STEPS, f"BST took {state.step} steps, wanted {STEPS}")
+    check(all(math.isfinite(x) for x in losses), "non-finite BST training loss")
+    check(losses[-1] < losses[0], f"BST loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(ev["eval_batches"] == EVAL_BATCHES, "BST eval batch count")
+    check(ev["eval_auc"] > 0.5 + BST_AUC_MARGIN, f"BST eval_auc {ev['eval_auc']}")
+    check(ev["eval_auc_exact"] > 0.5 + BST_AUC_MARGIN, f"BST eval_auc_exact {ev['eval_auc_exact']}")
+    check(dict(k1=k1, fwd=fwd, dkv=dkv, dq=dq) == want,
+          f"BST launches k1 {k1} fwd {fwd} dkv {dkv} dq {dq}, wanted {want}")
+    check(len(plain_losses) == STEPS, "plain-attention BST step count")
+    check(path_diff <= BST_PATHS_LOSS_TOL, f"flash vs plain BST losses differ by {path_diff}")
+    check(auc_diff <= BST_PATHS_AUC_TOL, f"flash vs plain BST eval AUC differ by {auc_diff}")
+    return dict(k1=k1, fwd=fwd, dkv=dkv, dq=dq)
+
+
+def _small_bst(device, state_dict, data, flash: bool) -> list[float]:
+    model = BST(300, 20, item_dim=8, cat_dim=8, mlp_units=(32, 16, 1), num_blocks=1,
+                device=device)
+    model.load_state_dict(state_dict)
+    _set_flash(model, flash)
+    loss_fn, eval_fn = make_ctr_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1), eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    losses = []
+    trainer.fit(state, batch_iterator(data, 256, seed=SEED), 3,
+                log_fn=lambda m: losses.append(m["loss"]))
+    return losses
+
+
+def phase_bst_card_cpu(device):
+    data = SyntheticSequence(num_items=300, num_cats=20, max_len=20, seed=SEED).sample(3 * 256, seed=1)
+    init = init_model(
+        BST(300, 20, item_dim=8, cat_dim=8, mlp_units=(32, 16, 1), num_blocks=1), seed=SEED
+    ).state_dict()
+    before = k2_counts()
+    card = _small_bst(device, init, data, flash=True)
+    launched = [a - b for a, b in zip(k2_counts(), before)]
+    cpu = _small_bst(torch.device("cpu"), init, data, flash=True)  # flash_mha_ref
+    diff = max(abs(a - b) for a, b in zip(card, cpu))
+    emit("bst_card_cpu", card_losses=card, cpu_losses=cpu, max_abs_diff=diff,
+         tolerance=CARD_CPU_LOSS_TOL, k2_launches_on_card=launched)
+    check(len(card) == len(cpu) == 3, "BST card/CPU step count")
+    check(launched == [3, 3, 3], f"card run launched K2 {launched} times, wanted 3 each")
+    check(diff <= CARD_CPU_LOSS_TOL, f"BST card vs CPU losses differ by {diff}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -266,21 +526,54 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
-    k1 = phase_k1(device)
-    launches = phase_train(device)
+    bst_train, bst_test = bst_data()
+    k1 = phase_k1(device, bst_train["pos_his_item"][:BST_BATCH])
+    r5 = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=1000, seed=SEED)
+    r5_valid = k2_valid(r5.sample(128, seed=1)["pos_his_item"], device)
+    k2 = {
+        "bst": phase_k2(device, "bst_b1024_L101_Dh9",
+                        k2_valid(bst_train["pos_his_item"][:BST_BATCH], device), 4, 9),
+        "r5_dh9": phase_k2(device, "probe_b128_L1001_Dh9", r5_valid, 4, 9),
+        "r5_dh64": phase_k2(device, "probe_b128_L1001_Dh64", r5_valid, 4, 64),
+    }
+    dlrm_k1 = phase_train(device)
     phase_card_cpu(device)
+    bst_launches = phase_bst_train(device, bst_train, bst_test)
+    phase_bst_card_cpu(device)
     print(smi, flush=True)
     main_case = k1["bf16_order"]  # the bf16 table's backward: bf16 cotangent + order
-    print(json.dumps({"kernels": [{
+    bst = k2["bst"]
+    kernels = [{
         "name": "sorted_scatter_add",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches,
+        "launches": dlrm_k1 + bst_launches["k1"],  # DLRM run + BST run
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
-    }]}), flush=True)
+    }]
+    for key, launches, ms, plain_ms in (
+        ("fwd", bst_launches["fwd"], bst["fwd_ms"], bst["plain_fwd_ms"]),
+        ("bwd_dkv", bst_launches["dkv"], bst["bwd_dkv_ms"], bst["plain_bwd_ms"]),
+        ("bwd_dq", bst_launches["dq"], bst["bwd_dq_ms"], bst["plain_bwd_ms"]),
+    ):
+        errs = [r["abs_err"]["o"] if key == "fwd" else
+                max(r["abs_err"][n] for n in (("dk", "dv") if key == "bwd_dkv" else ("dq",)))
+                for r in k2.values()]
+        kernels.append({
+            "name": f"flash_attention_{key}",
+            "route": "cuda",
+            "source": K2_SOURCE,
+            "replaces": K2_REPLACES,
+            "tpu_kernel": K2_TPU_KERNELS[key],
+            "launches": launches,  # BST run
+            "max_abs_err": max(errs),
+            "ms": ms,  # BST shape
+            # the plain forward; for the backward kernels the whole plain backward
+            "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

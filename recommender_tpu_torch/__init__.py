@@ -5,16 +5,22 @@ sits at the same relative path (``recommender_tpu/ops/rounding.py`` ↔
 ``recommender_tpu_torch/ops/rounding.py``). The JAX package is the
 reference; the port never imports it (nor jax, flax or optax).
 
-Slice 1 covers DLRM training at ``bench.py`` width:
+Slice 1 covers DLRM training at ``bench.py`` width, slice 2 BST training
+at ``benchmarks/bench_models.py::bench_bst`` width:
 
-* ``data``      — ``SyntheticCTR`` and ``batch_iterator`` (numpy copies).
+* ``data``      — ``SyntheticCTR``, ``SyntheticSequence`` and
+                  ``batch_iterator`` (numpy copies).
 * ``ops``       — stochastic rounding; the embedding lookup whose backward
-                  is the hand-written CUDA sorted scatter-add (K1).
+                  is the hand-written CUDA sorted scatter-add (K1); flash
+                  attention, hand-written in CUDA (K2).
 * ``embedding`` — the replicated ``Embedding`` table.
-* ``nn``        — ``MLP``, ``DotInteraction``, ``fm_cross``, BCE losses.
-* ``models``    — ``DLRM`` and the CTR task wrappers.
+* ``nn``        — ``MLP`` (with flax's input ``BatchNorm``),
+                  ``DotInteraction``, ``fm_cross``, BCE losses,
+                  ``masked_mean_pool``, ``TransformerBlock``.
+* ``models``    — ``DLRM``, ``SequenceBase``, ``BST`` and the CTR task
+                  wrappers.
 * ``core``      — SR-Adam, streaming metrics, the single-device ``Trainer``.
-* ``convert``   — flax param tree → the port's ``state_dict``.
+* ``convert``   — flax params and ``batch_stats`` → the port's ``state_dict``.
 
 Divergences from the JAX package are listed in ``PARITY.md`` beside this
 file.

@@ -1,13 +1,19 @@
-"""JAX param tree → the port's ``state_dict``.
+"""JAX variables → the port's ``state_dict``.
 
 The input is a flax param tree as a nested dict of numpy arrays (e.g.
-``jax.tree.map(np.asarray, params)``); no jax is needed here. Names map
-one to one because the port's modules carry the flax names:
+``jax.tree.map(np.asarray, params)``), and optionally the ``batch_stats``
+collection; no jax is needed here. Names map one to one because the port's
+modules carry the flax names:
 
-* ``bottom_mlp/Dense_0/kernel`` [in, out] → ``bottom_mlp.Dense_0.weight``
-  [out, in] (transposed, the layout of ``torch.nn.Linear``);
-* ``…/bias`` → ``….bias`` as is;
-* ``embedding/embedding`` [V, D] → ``embedding.embedding`` as is.
+* a 2-D ``kernel`` [in, out] (``nn.Dense``) → ``weight`` [out, in]
+  (transposed, the layout of ``torch.nn.Linear``), e.g.
+  ``bottom_mlp/Dense_0/kernel`` → ``bottom_mlp.Dense_0.weight``;
+* any other ``kernel`` (``nn.DenseGeneral``: ``qkv`` [in, 3, H, Dh], ``out``
+  [H, Dh, out]) → ``kernel`` in its own shape (the port's ``DenseGeneral``);
+* ``scale`` (LayerNorm, BatchNorm) → ``weight``;
+* ``bias`` and ``embedding`` (``Embedding`` tables, ``nn.Embed``) as is;
+* ``batch_stats`` ``…/BatchNorm_0/{mean, var}`` → the BatchNorm buffers of
+  the same names.
 
 bf16 arrays (numpy's ``bfloat16`` extension dtype) keep their bits.
 """
@@ -25,31 +31,33 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
-    """Flatten a flax param tree into ``state_dict`` entries (CPU tensors)."""
+def flax_to_state_dict(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """Flatten a flax param tree (and ``batch_stats``) into ``state_dict``
+    entries (CPU tensors)."""
     out: dict[str, torch.Tensor] = {}
 
-    def walk(tree: dict, path: tuple):
+    def walk(tree: dict, path: tuple, rename: bool):
         for key, value in tree.items():
             if isinstance(value, dict):
-                walk(value, path + (key,))
+                walk(value, path + (key,), rename)
                 continue
             arr = np.asarray(value)
-            if key == "kernel":
-                if arr.ndim != 2:
-                    raise ValueError(f"{'/'.join(path + (key,))}: expected a 2-D kernel")
-                out[".".join(path + ("weight",))] = _to_tensor(arr.T)
-            else:
-                out[".".join(path + (key,))] = _to_tensor(arr)
+            if rename and key == "kernel" and arr.ndim == 2:
+                key, arr = "weight", arr.T
+            elif rename and key == "scale":
+                key = "weight"
+            out[".".join(path + (key,))] = _to_tensor(arr)
 
-    walk(params, ())
+    walk(params, (), rename=True)
+    walk(batch_stats or {}, (), rename=False)
     return out
 
 
-def load_flax_params(model: nn.Module, params: dict) -> nn.Module:
-    """Copy a flax param tree into ``model`` (every parameter must match by
-    name, shape and dtype)."""
-    state = flax_to_state_dict(params)
+def load_flax_params(model: nn.Module, params: dict, batch_stats: dict | None = None) -> nn.Module:
+    """Copy a flax param tree, and the ``batch_stats`` collection where the
+    model has BatchNorm buffers, into ``model``: every entry of its
+    ``state_dict`` must be matched by name, shape and dtype."""
+    state = flax_to_state_dict(params, batch_stats)
     own = model.state_dict()
     for name, value in state.items():
         if name not in own:
@@ -59,7 +67,7 @@ def load_flax_params(model: nn.Module, params: dict) -> nn.Module:
                 f"{name}: {tuple(value.shape)} {value.dtype} does not fit "
                 f"{tuple(own[name].shape)} {own[name].dtype}"
             )
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(state, strict=True)  # raises on a missing entry
     return model
 
 

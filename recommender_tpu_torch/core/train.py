@@ -8,6 +8,8 @@ in place.
 Protocol (``models.tasks``): ``loss_fn(batch, train) -> (per_example_loss
 [B], aux dict)`` and ``eval_fn(batch) -> (scores [B], labels [B])``, both
 closing over the model. The engine takes the mean of the per-example loss.
+There is no ``model_state``: the model's buffers (BatchNorm's running
+stats) take its place, updated by the forward of each train step.
 
 ``TrainConfig`` holds only the fields this engine implements; any other
 field of the JAX config is a ``TypeError`` at construction rather than a
@@ -100,9 +102,10 @@ class Trainer:
         automatic ``stochastic_round`` mode."""
         model = init_model_fn()
         named = jax_leaf_order(model)
-        for name, p in named:
-            if p.device != self.device:
-                raise ValueError(f"param {name} is on {p.device}, trainer on {self.device}")
+        # buffers (BatchNorm's running stats) are the JAX Trainer's model_state
+        for name, t in [*named, *model.named_buffers()]:
+            if t.device != self.device:
+                raise ValueError(f"{name} is on {t.device}, trainer on {self.device}")
         mdt = self.cfg.moment_dtype
         optimizer = AdamSR(
             [p for _, p in named],

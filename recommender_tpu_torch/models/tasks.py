@@ -2,8 +2,10 @@
 
 Port of ``recommender_tpu/models/tasks.py`` (``init_model``,
 ``make_ctr_task``). The JAX functions take ``(params, model_state, batch,
-rng, train)``; a torch module holds its own parameters and the CTR models
-of this slice use no randomness at train time, so here
+rng, train)``; a torch module holds its own parameters, and its mutable
+state (BatchNorm's running stats, flax's ``batch_stats``) as buffers that
+its forward updates in ``train()`` mode. The models of the port use no
+randomness at train time, so here
 
 * ``loss_fn(batch, train) -> (per_example_loss [B], aux dict)``
 * ``eval_fn(batch) -> (scores [B], labels [B])``
@@ -22,7 +24,8 @@ from recommender_tpu_torch.nn.losses import binary_cross_entropy
 
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Re-draw the model's parameters from a ``torch.Generator`` seeded with
-    ``seed``, on the parameters' device. The draws differ from
+    ``seed``, on the parameters' device, and reset its running stats. The
+    draws differ from
     ``jax.random``'s for the same seed; ``convert.py`` carries a JAX init
     over exactly."""
     device = next(model.parameters()).device

@@ -6,8 +6,11 @@ params are f32 masters; each layer casts its input, weight and bias to
 flax ``Dense(dtype=bf16, param_dtype=f32)`` does; the final activation runs
 in f32 and a result whose dtype differs from the input's comes back as f32.
 Layers are named ``Dense_0 … Dense_{n-1}`` like the flax submodules, so
-``convert.py`` maps names one to one. The input BatchNorm option belongs to
-a later slice.
+``convert.py`` maps names one to one.
+
+``input_batch_norm=True`` puts ``BatchNorm_0`` before the first layer: flax
+``nn.BatchNorm(use_running_average=not train, dtype=float32)`` semantics,
+which differ from ``torch.nn.BatchNorm1d``'s defaults (see ``BatchNorm``).
 """
 from __future__ import annotations
 
@@ -21,17 +24,70 @@ from torch.nn import functional as F
 _TRUNC_NORMAL_STD = 0.87962566103423978  # std of N(0,1) truncated to [-2, 2]
 
 
-def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
-    """flax ``lecun_normal()`` for a torch ``[out, in]`` weight: a normal
-    truncated at ±2σ, scaled to variance 1/fan_in."""
-    fan_in = weight.shape[1]
+def lecun_normal_(weight: torch.Tensor, generator=None, fan_in: Optional[int] = None) -> torch.Tensor:
+    """flax ``lecun_normal()`` for a torch ``[out, in]`` weight (or any shape
+    with ``fan_in`` given): a normal truncated at ±2σ, scaled to variance
+    1/fan_in."""
+    fan_in = weight.shape[1] if fan_in is None else fan_in
     nn.init.trunc_normal_(weight, std=1.0, a=-2.0, b=2.0, generator=generator)
     return weight.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_NORMAL_STD)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis, computed in f32.
+
+    * Train mode normalizes by the batch statistics, with the variance as
+      flax's fast form ``max(E[x²] − E[x]², 0)`` (biased), and moves the
+      running stats by ``momentum * old + (1 − momentum) * batch`` — the
+      biased variance goes into ``var`` too, where torch's BatchNorm1d uses
+      the unbiased one. ``momentum`` 0.99 is torch's ``momentum=0.01``.
+    * Eval mode normalizes by the running stats.
+
+    ``weight``/``bias`` are flax's ``scale``/``bias`` params; the running
+    stats are the buffers ``mean`` and ``var``, flax's ``batch_stats``
+    entries of the same names (``convert.py`` loads them)."""
+
+    def __init__(
+        self, num_features: int, momentum: float = 0.99, epsilon: float = 1e-5, *, device=None
+    ):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.ones(num_features, **f32))
+        self.bias = nn.Parameter(torch.zeros(num_features, **f32))
+        self.register_buffer("mean", torch.zeros(num_features, **f32))
+        self.register_buffer("var", torch.ones(num_features, **f32))
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        """flax init: scale 1, bias 0; running mean 0, var 1."""
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return (x - mean) * mul + self.bias
+
+
 class MLP(nn.Module):
     """Stack of dense layers: ``units[:-1]`` use ``activation``, the last
-    uses ``final_activation`` (None = linear)."""
+    uses ``final_activation`` (None = linear). ``input_batch_norm`` applies
+    ``BatchNorm_0`` to the input first, in train mode while the module is
+    in ``train()`` mode."""
 
     def __init__(
         self,
@@ -39,6 +95,7 @@ class MLP(nn.Module):
         units: Sequence[int],
         activation: Callable = F.relu,
         final_activation: Optional[Callable] = None,
+        input_batch_norm: bool = False,
         compute_dtype: torch.dtype = torch.bfloat16,
         *,
         device=None,
@@ -48,9 +105,12 @@ class MLP(nn.Module):
         self.units = tuple(units)
         self.activation = activation
         self.final_activation = final_activation
+        self.input_batch_norm = input_batch_norm
         self.compute_dtype = compute_dtype
         prev = in_features
         device = torch.device("cpu") if device is None else device
+        if input_batch_norm:
+            self.BatchNorm_0 = BatchNorm(in_features, device=device)
         for i, unit in enumerate(self.units):
             # allocated uninitialized; reset_parameters draws the flax init
             layer = nn.utils.skip_init(
@@ -65,7 +125,10 @@ class MLP(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax ``Dense`` init: lecun-normal kernel, zero bias."""
+        """flax ``Dense`` init: lecun-normal kernel, zero bias (and the
+        BatchNorm's own init)."""
+        if self.input_batch_norm:
+            self.BatchNorm_0.reset_parameters()
         for layer in self.layers():
             lecun_normal_(layer.weight, generator)
             layer.bias.zero_()
@@ -73,6 +136,8 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         orig_dtype = x.dtype
         cd = self.compute_dtype
+        if self.input_batch_norm:
+            x = self.BatchNorm_0(x)
         x = x.to(cd)
         layers = self.layers()
         for i, layer in enumerate(layers):
