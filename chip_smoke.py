@@ -27,10 +27,13 @@ Phases, one JSON line each (k2 one per shape):
                   attention), one ``nvcc`` per source, started together.
 3. k1           — K1 against its plain PyTorch version at the DLRM shape
                   (212,992 ids into [1M, 16]): f32 and bf16 rounding, with
-                  and without ``order``, with ids >= V; and at BST's history
-                  lookup (102,400 ids into [400,000, 18]); bitwise
-                  repeatability; kernel and plain times (CUDA events,
-                  median of 25).
+                  and without ``order``, with ids >= V; at BST's item and
+                  cat history lookups (102,400 ids into [400,000, 18] and
+                  [1,500, 18]); and at the DLRM shape with bf16 + ``order``
+                  for the worst skew (every id equal) and its uniform twin
+                  (ids uniform in [0, 1M)), whose times must stay within 2x;
+                  bitwise repeatability; kernel and plain times (CUDA
+                  events, median of 25).
 4. k2           — K2 (forward, dK/dV, dQ) against ``flash_mha_ref`` at BST's
                   shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a real
                   batch) and at the TPU probe's B 128, L 1001, H 4 with
@@ -88,6 +91,8 @@ SEED = 0
 # a row may differ by f32 roundoff of its sum.
 K1_REL_TOL = 1e-5  # of the row's abs-sum
 K1_ABS_FLOOR = 1e-6
+# K1's time must not follow the longest run: every id equal vs uniform ids
+K1_SKEW_RATIO = 2.0
 # Eval AUC after 50 steps must clear 0.5 by this margin. Measured on an
 # H100 80GB HBM3 (700 W limit): 0.7769 for these seeds; the run is
 # deterministic up to GEMM rounding, so 0.2 leaves room without letting a
@@ -231,7 +236,7 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
     results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
 
 
-def phase_k1(device, bst_history: np.ndarray) -> dict:
+def phase_k1(device, bst_batch: dict) -> dict:
     sorted_ids, order, upd = k1_inputs(device)
     upd_sorted = upd.index_select(0, order.long()).contiguous()
     upd_bf16 = upd.to(torch.bfloat16)
@@ -247,15 +252,32 @@ def phase_k1(device, bst_history: np.ndarray) -> dict:
     results = {}
     for name, u, o, kd, u_sorted in cases:
         _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, VOCAB)
-    # BST's item-history lookup backward: one real batch's ids, pad id 0 included
-    raw = torch.from_numpy(bst_history.reshape(-1).astype(np.int32)).to(device)
-    sorted_ids, order = torch.sort(raw, stable=True)
-    order = order.to(torch.int32)
+    # BST's history lookup backwards: one real batch's ids, pad id 0 included
+    for name, key, vocab in (("bst_item_history_f32_order", "pos_his_item", BST_ITEMS),
+                             ("bst_cat_history_f32_order", "pos_his_cat", BST_CATS)):
+        raw = torch.from_numpy(bst_batch[key].reshape(-1).astype(np.int32)).to(device)
+        sorted_ids, order = torch.sort(raw, stable=True)
+        order = order.to(torch.int32)
+        g = torch.Generator(device=device).manual_seed(SEED)
+        upd = torch.randn((raw.numel(), 18), generator=g, device=device)
+        _k1_case(results, name, sorted_ids, upd, order, torch.float32,
+                 upd.index_select(0, order.long()), vocab, pad_rows=int((raw == 0).sum()))
+    # skew: every id equal, against ids uniform over the table (bf16 + order)
+    n = BATCH * 26
     g = torch.Generator(device=device).manual_seed(SEED)
-    upd = torch.randn((raw.numel(), 18), generator=g, device=device)
-    _k1_case(results, "bst_item_history_f32_order", sorted_ids, upd, order, torch.float32,
-             upd.index_select(0, order.long()), BST_ITEMS,
-             pad_rows=int((raw == 0).sum()))
+    upd_bf16 = torch.randn((n, DIM), generator=g, device=device).to(torch.bfloat16)
+    for name, raw in (
+        ("skew_one_id_bf16_order", torch.full((n,), 12345, dtype=torch.int32, device=device)),
+        ("skew_uniform_bf16_order",
+         torch.randint(0, VOCAB, (n,), generator=g, device=device, dtype=torch.int32)),
+    ):
+        sorted_ids, order = torch.sort(raw, stable=True)
+        order = order.to(torch.int32)
+        _k1_case(results, name, sorted_ids, upd_bf16, order, torch.float32,
+                 upd_bf16.index_select(0, order.long()).float(), VOCAB)
+    ratio = results["skew_one_id_bf16_order"]["ms"] / results["skew_uniform_bf16_order"]["ms"]
+    emit("k1_skew", one_id_over_uniform=ratio, limit=K1_SKEW_RATIO)
+    check(ratio <= K1_SKEW_RATIO, f"K1 with one id takes {ratio:.2f}x its uniform-id time")
     return results
 
 
@@ -527,7 +549,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     bst_train, bst_test = bst_data()
-    k1 = phase_k1(device, bst_train["pos_his_item"][:BST_BATCH])
+    k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in bst_train.items()})
     r5 = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=1000, seed=SEED)
     r5_valid = k2_valid(r5.sample(128, seed=1)["pos_his_item"], device)
     k2 = {
@@ -552,6 +574,9 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        # BST's item-history backward (f32 + order, 102,400 ids into [400,000, 18])
+        "bst_item_history_ms": k1["bst_item_history_f32_order"]["ms"],
+        "bst_item_history_plain_ms": k1["bst_item_history_f32_order"]["plain_ms"],
     }]
     for key, launches, ms, plain_ms in (
         ("fwd", bst_launches["fwd"], bst["fwd_ms"], bst["plain_fwd_ms"]),

@@ -8,27 +8,67 @@ JAX package's other backward routes (the padded-width XLA scatter and the
 row and volume gates that choose between routes) exist for the TPU's lane
 width and are not ported.
 
+The kernel runs in two passes, so that its time follows the bytes it moves
+and not the longest run of equal ids. Pass 1 cuts the N sorted positions
+into chunks of a fixed size (``_geometry``) and sums, one block per chunk,
+the pieces of runs inside it; a run that crosses a chunk boundary leaves
+one partial row per side of each chunk it touches. Pass 2 sums each
+crossing run's partial rows in chunk order. The wrapper allocates the
+output (``torch.zeros``) and the partial rows (``torch.empty``, 2 x D f32
+per chunk) on the current stream; nothing is read back to the host.
+
 ``sorted_scatter_add`` launches the kernel for CUDA tensors and counts each
-launch in ``sorted_scatter_add.launches``. For CPU tensors it computes the
-same function with ``sorted_scatter_add_ref``, the plain PyTorch version
-that the tests and ``chip_smoke.py`` hold the kernel against.
+call in ``sorted_scatter_add.launches`` (one per call, although a call is
+two CUDA launches). For CPU tensors it computes the same function with
+``sorted_scatter_add_ref``, the plain PyTorch version that the tests and
+``chip_smoke.py`` hold the kernel against.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from recommender_tpu_torch.ops import _build
 
 
+# Launch geometry; the first two mirror kThreads and kRows in the source,
+# which refuses a chunk other than slots * kRows.
+_THREADS = 256  # threads per block
+_ROWS_PER_SLOT = 8  # sorted positions each row slot sums
+_MAX_SLAB = 32  # column groups one row slot covers at a time
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
     """The C entry of ``csrc/sorted_scatter_add.cu``, built at first use."""
     fn = _build.load("sorted_scatter_add").rtt_sorted_scatter_add
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, vp, vp, vp, i64, i32, i64, i32, i32, i32, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i64, i32, i32, i32, i32, i32, i32, vp]
     fn.restype = i32
     return fn
+
+
+def _load_width(d: int, element_size: int, address: int) -> int:
+    """Elements per column group: the widest load of 16, 8, 4 or 2 bytes
+    that divides the row (``d`` elements) and the rows' start address, else
+    one element."""
+    for nbytes in (16, 8, 4, 2):
+        vec = nbytes // element_size
+        if vec >= 1 and d % vec == 0 and address % nbytes == 0:
+            return vec
+    return 1
+
+
+def _geometry(d: int, vec: int) -> tuple[int, int, int]:
+    """(slab, slots, chunk): a block's row slots each span ``slab`` column
+    groups of ``vec`` elements (wider rows take several slabs in turn);
+    ``slots`` of them fill the block, and a chunk, one block's share of
+    the sorted positions, is ``slots * _ROWS_PER_SLOT`` positions."""
+    slab = min(d // vec, _MAX_SLAB)
+    slots = _THREADS // slab
+    return slab, slots, slots * _ROWS_PER_SLOT
 
 
 def _check_scatter_args(sorted_ids, updates, vocab_size, order, kernel_dtype):
@@ -101,8 +141,12 @@ def sorted_scatter_add(
     is accepted for signature parity with the JAX function, whose TPU
     DEFAULT precision rounded operands to bf16 (``PARITY.md``).
 
-    CPU tensors take ``sorted_scatter_add_ref``; CUDA tensors launch the
-    kernel, or raise.
+    CPU tensors take ``sorted_scatter_add_ref``. CUDA tensors launch the
+    kernel's two passes (module docstring) on the current stream, with
+    ``torch.zeros`` for the output and ``torch.empty`` scratch for the
+    partial rows of runs that cross chunk boundaries, or raise; there is
+    no host sync. ``sorted_scatter_add.launches`` counts calls that
+    launched the kernel, not CUDA launches.
     """
     del precision
     _check_scatter_args(sorted_ids, updates, vocab_size, order, kernel_dtype)
@@ -118,9 +162,11 @@ def sorted_scatter_add(
         return out
     upd_bf16 = updates.dtype == torch.bfloat16
     round_bf16 = kernel_dtype == torch.bfloat16 and not upd_bf16
-    vec = 16 // updates.element_size()  # one 16-byte load per column group
-    if d % vec or updates.data_ptr() % 16:
-        vec = 1
+    vec = _load_width(d, updates.element_size(), updates.data_ptr())
+    slab, slots, chunk = _geometry(d, vec)
+    partials = torch.empty(
+        (-(-n // chunk), 2, d), dtype=torch.float32, device=updates.device
+    )
     fn = _kernel_fn()
     with torch.cuda.device(updates.device):
         err = fn(
@@ -128,7 +174,8 @@ def sorted_scatter_add(
             updates.data_ptr(),
             None if order is None else order.data_ptr(),
             out.data_ptr(),
-            n, d, vocab_size, int(upd_bf16), int(round_bf16), vec,
+            partials.data_ptr(),
+            n, d, vocab_size, int(upd_bf16), int(round_bf16), vec, slab, slots, chunk,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -2,10 +2,14 @@
 
 On the CPU the wrapper runs its plain version, which is held here against
 the JAX package's Pallas kernel run in interpret mode (the monkeypatch of
-``tests/test_ops.py``) and against ``jax.grad`` of the JAX lookup. The CUDA
-kernel itself is held against the plain version by the ``cuda``-marked
-test, which skips without a card (``python3 chip_smoke.py`` does the same
-check on the card at the DLRM shape). jax is imported inside the tests that
+``tests/test_ops.py``) and against ``jax.grad`` of the JAX lookup. The cases
+include the skews the kernel's two passes must survive: a quarter of the
+ids equal (BST's pad id 0), a single id, runs of C - 1, C and C + 1 around
+the kernel's chunk of C positions, and ids below 0 and at or above V. The
+CUDA kernel itself is held against the plain version by the ``cuda``-marked
+tests (every case above, and a sweep of widths, dtypes and ``order``),
+which skip without a card (``python3 chip_smoke.py`` does the same check on
+the card at the DLRM and BST shapes). jax is imported inside the tests that
 use it, so that the ``cuda`` tests also run where jax is not installed:
 
     python -m pytest tests/test_torch_embedding_kernels.py -m cuda --noconftest
@@ -93,10 +97,44 @@ def _case(kind, rng):
         hi = rng.integers(V - 100, V, N - N // 2)
         ids = np.sort(np.concatenate([lo, hi])).astype(np.int32)
         return ids, rng.normal(size=(N, D)).astype(np.float32), V, None, "f32"
+    if kind == "pad_run_d18_order":
+        # a BST-like history: a quarter of the positions are pad id 0
+        V, D, N = 4000, 18, 2500
+        raw = np.where(rng.random(N) < 0.25, 0, rng.integers(1, V, N)).astype(np.int32)
+        order = np.argsort(raw, kind="stable").astype(np.int32)
+        return raw[order], rng.normal(size=(N, D)).astype(np.float32), V, order, "f32"
+    if kind == "one_id":
+        V, D, N = 600, 16, 2100
+        raw = np.full(N, 417, np.int32)
+        order = np.argsort(raw, kind="stable").astype(np.int32)
+        return raw[order], rng.normal(size=(N, D)).astype(np.float32), V, order, "f32"
+    if kind == "runs_at_chunk_edges":
+        # runs of C - 1, C and C + 1 positions around the kernel's chunk of C
+        # (and of the 8 positions of a row slot); N is not a multiple of C
+        V, D = 3000, 16
+        C = ek._geometry(D, ek._load_width(D, 4, 0))[2]
+        lens = [3, C - 1, C, C + 1, 7, 8, 9, C, 1, 2 * C + 1, 5]
+        starts = np.sort(rng.choice(V, len(lens), replace=False))
+        ids = np.repeat(starts, lens).astype(np.int32)
+        assert ids.size % C
+        return ids, rng.normal(size=(ids.size, D)).astype(np.float32), V, None, "f32"
+    if kind == "negative_and_pad":
+        V, D = 1500, 16
+        raw = np.concatenate([
+            rng.integers(-2**31, 0, 150), np.full(60, -1),
+            rng.integers(0, V, 1400), np.full(70, V), rng.integers(V, 2**31 - 1, 50),
+            np.full(120, PAD),
+        ]).astype(np.int32)
+        rng.shuffle(raw)
+        order = np.argsort(raw, kind="stable").astype(np.int32)
+        return raw[order], rng.normal(size=(raw.size, D)).astype(np.float32), V, order, "f32"
     raise ValueError(kind)
 
 
-CASES = ["d16", "d18_order", "bf16_kernel_dtype", "pad_ids", "empty_tiles"]
+CASES = [
+    "d16", "d18_order", "bf16_kernel_dtype", "pad_ids", "empty_tiles",
+    "pad_run_d18_order", "one_id", "runs_at_chunk_edges", "negative_and_pad",
+]
 
 
 @pytest.mark.parametrize("kind", CASES)
@@ -212,6 +250,25 @@ def test_wrapper_rejects_bad_arguments(bad):
         ek.sorted_scatter_add(ids, upd, 10, **kw)
 
 
+def _check_on_card(ids, upd_t, vocab, order, kernel_dtype, device):
+    args = dict(order=None if order is None else torch.from_numpy(order),
+                kernel_dtype=kernel_dtype)
+    want = ek.sorted_scatter_add_ref(torch.from_numpy(ids), upd_t, vocab, **args)
+    dev_args = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in args.items()}
+    launches = ek.sorted_scatter_add.launches
+    got, again = (
+        ek.sorted_scatter_add(torch.from_numpy(ids).to(device), upd_t.to(device), vocab,
+                              **dev_args)
+        for _ in range(2)
+    )
+    torch.cuda.synchronize()
+    assert ek.sorted_scatter_add.launches == launches + 2
+    assert torch.equal(got, again)  # deterministic: no atomics
+    contrib = upd_t.to(kernel_dtype).float().numpy()
+    ordered = contrib if order is None else contrib[order]
+    _assert_rows_close(got.cpu().numpy(), want.numpy(), _row_abs_sum(ids, ordered, vocab))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", CASES + ["bf16_updates"])
 def test_cuda_kernel_matches_plain(kind, cuda_device):
@@ -224,18 +281,72 @@ def test_cuda_kernel_matches_plain(kind, cuda_device):
         ids, upd, V, order, kd = _case(kind, rng)
         upd_t = torch.from_numpy(upd)
     tdt = torch.bfloat16 if kd == "bf16" else torch.float32
-    args = dict(order=None if order is None else torch.from_numpy(order), kernel_dtype=tdt)
-    want = ek.sorted_scatter_add_ref(torch.from_numpy(ids), upd_t, V, **args)
-    dev_args = {k: (v.to(cuda_device) if torch.is_tensor(v) else v) for k, v in args.items()}
-    launches = ek.sorted_scatter_add.launches
-    got = ek.sorted_scatter_add(
-        torch.from_numpy(ids).to(cuda_device), upd_t.to(cuda_device), V, **dev_args
-    )
-    again = ek.sorted_scatter_add(
-        torch.from_numpy(ids).to(cuda_device), upd_t.to(cuda_device), V, **dev_args
-    )
-    torch.cuda.synchronize()
-    assert ek.sorted_scatter_add.launches == launches + 2
-    assert torch.equal(got, again)  # deterministic: no atomics
-    ordered = upd_t.float().numpy() if order is None else upd_t.float().numpy()[order]
-    _assert_rows_close(got.cpu().numpy(), want.numpy(), _row_abs_sum(ids, ordered, V))
+    _check_on_card(ids, upd_t, V, order, tdt, cuda_device)
+
+
+@pytest.mark.parametrize(
+    "d, element_size, address, vec",
+    [
+        (16, 4, 0, 4),  # 64-byte rows: 16-byte loads
+        (18, 4, 0, 2),  # 72-byte rows: 8-byte loads
+        (5, 4, 0, 1),
+        (16, 4, 8, 2),  # rows only 8-byte aligned
+        (16, 2, 0, 8),
+        (18, 2, 0, 2),
+        (6, 2, 0, 2),
+        (5, 2, 0, 1),
+    ],
+)
+def test_load_width_follows_row_bytes(d, element_size, address, vec):
+    assert ek._load_width(d, element_size, address) == vec
+
+
+@pytest.mark.parametrize("d, vec", [(1, 1), (16, 4), (16, 8), (18, 2), (130, 2), (256, 4)])
+def test_chunk_geometry_fills_one_block(d, vec):
+    slab, slots, chunk = ek._geometry(d, vec)
+    assert 1 <= slab <= d // vec and slab * slots <= ek._THREADS
+    assert slots * slab > ek._THREADS - slab  # no whole row slot left idle
+    assert chunk == slots * ek._ROWS_PER_SLOT
+
+
+SWEEP_DIMS = [1, 5, 8, 16, 18, 33, 64, 130]
+SWEEP_TYPES = ["f32", "bf16_updates", "f32_kernel_bf16"]
+
+
+def _sweep_case(d, rng, n=3000, vocab=2500):
+    """Zipf ids with one run long enough to cross several chunks at any
+    width, some ids >= V; original order and its stable argsort."""
+    raw = (rng.zipf(1.3, n) % vocab).astype(np.int32)
+    raw[:1200] = 77
+    raw[-40:] = vocab + 3
+    rng.shuffle(raw)
+    order = np.argsort(raw, kind="stable").astype(np.int32)
+    return raw, order, rng.normal(size=(n, d)).astype(np.float32), vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", [True, False], ids=["order", "sorted"])
+@pytest.mark.parametrize("dtypes", SWEEP_TYPES)
+@pytest.mark.parametrize("d", SWEEP_DIMS)
+def test_cuda_kernel_width_sweep(d, dtypes, with_order, cuda_device):
+    rng = np.random.default_rng(d)
+    raw, order, upd, vocab = _sweep_case(d, rng)
+    upd_t = torch.from_numpy(upd)
+    if not with_order:
+        upd_t = upd_t[torch.from_numpy(order).long()].contiguous()
+    if dtypes == "bf16_updates":
+        upd_t = upd_t.to(torch.bfloat16)
+    kd = torch.bfloat16 if dtypes == "f32_kernel_bf16" else torch.float32
+    _check_on_card(raw[order], upd_t, vocab, order if with_order else None, kd, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["n1", "all_dropped"])
+def test_cuda_kernel_edge_inputs(kind, cuda_device):
+    rng = np.random.default_rng(3)
+    if kind == "n1":
+        ids = np.array([5], np.int32)
+    else:
+        ids = np.sort(rng.integers(10, 2**31 - 1, 700)).astype(np.int32)  # all >= V
+    upd_t = torch.from_numpy(rng.normal(size=(ids.size, 16)).astype(np.float32))
+    _check_on_card(ids, upd_t, 10, None, torch.float32, cuda_device)
