@@ -13,7 +13,9 @@ random weights drawn from seed 0:
   table 1,500 x 18, 2 post-LN blocks of 4 heads (Dh 9, FFN 144) over
   history + target (L 101), max_len 512, MLP 72→200→80→1 with input
   BatchNorm, batch 1024, lr 1e-3, on ``SyntheticSequence`` batches, with
-  flash attention (the K2 kernels) on both blocks.
+  flash attention (the K2 kernels) on both blocks; and the same BST at the
+  TPU flash probe's history of 1,000 (batch 128), whose L 1,001 takes K2's
+  long backward route.
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
@@ -24,7 +26,8 @@ Phases, one JSON line each (k2 one per shape):
 
 1. device       — the card, its power limit, torch and CUDA versions; TF32 off.
 2. build        — build and load K1 (sorted scatter-add) and K2 (flash
-                  attention), one ``nvcc`` per source, started together.
+                  attention forward, and backward), one ``nvcc`` per
+                  source, started together.
 3. k1           — K1 against its plain PyTorch version at the DLRM shape
                   (212,992 ids into [1M, 16]): f32 and bf16 rounding, with
                   and without ``order``, with ids >= V; at BST's item and
@@ -34,26 +37,42 @@ Phases, one JSON line each (k2 one per shape):
                   (ids uniform in [0, 1M)), whose times must stay within 2x;
                   bitwise repeatability; kernel and plain times (CUDA
                   events, median of 25).
-4. k2           — K2 (forward, dK/dV, dQ) against ``flash_mha_ref`` at BST's
-                  shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a real
-                  batch) and at the TPU probe's B 128, L 1001, H 4 with
-                  Dh 9 and 64: errors, bitwise repeatability, and times of
-                  the forward and of forward + backward against the plain
-                  version (CUDA events, median of 25).
+4. k2           — K2 (forward and backward) against ``flash_mha_ref`` at
+                  BST's shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a
+                  real batch; fused backward), at L 128 (fused) and L 129
+                  (long route), B 256, and at the TPU probe's B 128, L 1001,
+                  H 4 with Dh 9 and 64 (long route): errors, bitwise
+                  repeatability; times of the forward, of forward +
+                  backward, of the backward and of each backward kernel
+                  alone, against the plain version and against
+                  ``scaled_dot_product_attention`` with the same mask (the
+                  yardstick, and the backend it took); each kernel's bound
+                  from bytes and FLOPs, and its share (CUDA events, median
+                  of 25).
 5. train        — 50 DLRM Trainer steps at full width, then ``evaluate`` on
                   20 held-out batches; K1's launch count must equal the steps.
 6. card_cpu     — a small f32-table DLRM for 3 steps from one init on the
                   card and on the CPU; the losses must agree.
 7. bst_train    — 50 BST Trainer steps at full width with flash attention,
                   then ``evaluate`` on 20 held-out batches; the K1 and K2
-                  launch counts must be exact. Then the same 50 steps with
-                  the plain attention from the same init: the per-step
-                  losses must agree.
-8. bst_card_cpu — a small BST for 3 steps from one init on the card (K2)
+                  launch counts must be exact (the fused backward only).
+                  Then the same 50 steps with the plain attention from the
+                  same init: the per-step losses must agree.
+8. bst_long     — 5 BST Trainer steps at history 1,000, batch 128, with
+                  flash attention (exact launch counts: the long route's
+                  dK/dV and dQ kernels only), then with plain attention
+                  from the same init: the losses must agree.
+9. bst_card_cpu — a small BST for 3 steps from one init on the card (K2)
                   and on the CPU (its plain version); the losses must agree.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
-and as the last line ``{"ok": true, "device": {...}}``. Any failed check
+and as the last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile-bst
+
+profiles the BST step instead (``profile_bst``: synced and unsynced step
+times, then ``torch.profiler`` over 10 steps), in a process of its own: a
+profiler run slows every later launch of the process. Any failed check
 raises, so the script exits non-zero without that line. It exits non-zero
 at once where no CUDA device is available.
 """
@@ -70,6 +89,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 from recommender_tpu_torch.data import SyntheticCTR, SyntheticSequence, batch_iterator
@@ -125,14 +145,28 @@ BST_AUC_MARGIN = 0.0
 BST_PATHS_LOSS_TOL = 1e-2
 BST_PATHS_AUC_TOL = 5e-3
 
+# BST at the TPU flash probe's shape (benchmarks/logs/bst_flash_r5.log,
+# bst_Dh9_T1000_b128): history 1,000, so L 1,001 takes K2's long backward
+# route; a few Trainer steps with flash, then with plain attention.
+BST_LONG_T = 1000
+BST_LONG_BATCH = 128
+BST_LONG_STEPS = 5
+
+# H100 SXM peaks (NVIDIA data sheet, dense), for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # f32 outside the tensor cores
+TF32_FLOPS = 495e12  # TF32 on the tensor cores
+
 K1_SOURCE = "recommender_tpu_torch/ops/csrc/sorted_scatter_add.cu"
 K1_REPLACES = "recommender_tpu/ops/embedding_kernels.py:213"
 K2_SOURCE = "recommender_tpu_torch/ops/csrc/flash_attention.cu"
+K2_BWD_SOURCE = "recommender_tpu_torch/ops/csrc/flash_attention_bwd.cu"
 K2_REPLACES = "recommender_tpu/nn/transformer.py:43"
 # the Pallas kernels _flash_mha reaches, in jax 0.9.0's
 # jax/experimental/pallas/ops/tpu/flash_attention.py
 K2_TPU_KERNELS = {
     "fwd": "flash_attention.py:589 _flash_attention_impl",
+    "bwd": "flash_attention.py:941 _flash_attention_bwd_dkv and :1287 _flash_attention_bwd_dq",
     "bwd_dkv": "flash_attention.py:941 _flash_attention_bwd_dkv",
     "bwd_dq": "flash_attention.py:1287 _flash_attention_bwd_dq",
 }
@@ -185,7 +219,7 @@ def phase_device() -> str:
 
 
 def phase_build():
-    names = ("sorted_scatter_add", "flash_attention")
+    names = ("sorted_scatter_add", "flash_attention", "flash_attention_bwd")
     cached = {n: _build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
@@ -223,6 +257,17 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
     bitwise = bool(torch.equal(got, again))
     ms = cuda_ms(lambda: ek.sorted_scatter_add(sorted_ids, u, vocab, order=o, kernel_dtype=kd))
     plain_ms = cuda_ms(lambda: ek.sorted_scatter_add_ref(sorted_ids, u, vocab, order=o, kernel_dtype=kd))
+    # the yardstick: index_add_ into a fresh zero table, on the updates already
+    # permuted, rounded and cut to the ids below vocab
+    keep = sorted_ids < vocab
+    lib_ids = sorted_ids[keep].long()
+    lib_upd = (u if o is None else u.index_select(0, o.long())).to(kd).float()[keep]
+    library_ms = cuda_ms(lambda: torch.zeros((vocab, u.shape[1]), device=u.device).index_add_(
+        0, lib_ids, lib_upd))
+    # bytes: ids, order, updates read once; the f32 table written once
+    n_bytes = (sorted_ids.numel() * 4 * (1 if o is None else 2) + u.numel() * u.element_size()
+               + vocab * u.shape[1] * 4)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     _, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
     emit("k1", case=name, n=int(sorted_ids.numel()), vocab=vocab, dim=int(u.shape[1]),
          unique_ids=int(torch.unique(sorted_ids[sorted_ids < vocab]).numel()),
@@ -230,10 +275,11 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
          max_abs_err=max_abs, max_rel_err=max_rel,
          tolerance=f"|err| <= {K1_REL_TOL} * row abs-sum + {K1_ABS_FLOOR}",
          within_tolerance=within, bitwise_repeatable=bitwise,
-         ms=ms, plain_ms=plain_ms)
+         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
     check(within, f"K1 {name} disagrees with its plain version (max abs {max_abs})")
     check(bitwise, f"K1 {name}: two launches differ")
-    results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms)
 
 
 def phase_k1(device, bst_batch: dict) -> dict:
@@ -289,13 +335,55 @@ def k2_valid(history: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(valid.astype(np.float32)).to(device)
 
 
+def k2_work(valid: torch.Tensor, heads: int, head_dim: int) -> dict:
+    """What K2's function needs at this shape and mask: the (query, key)
+    pairs the segment mask keeps (per head, summed), the bytes of one f32
+    [B, L, H, Dh] tensor, of one f32 [B, H, L] row vector and of seg."""
+    B, L = valid.shape
+    nv = valid.sum(1).double()
+    return dict(pairs=float((nv ** 2 + (L - nv) ** 2).sum()) * heads,
+                tensor=B * L * heads * head_dim * 4, rows=B * heads * L * 4, seg=B * L * 4)
+
+
+def k2_bounds(w: dict, head_dim: int) -> dict:
+    """Each K2 kernel's least time on the card (ms) and what sets it: each
+    input read once and each output written once at HBM_BYTES_PER_S, against
+    the products the kept pairs need at the rate of the kernel's arithmetic
+    (the forward's f32 FMAs; the backward's TF32 tensor-core products, three
+    per f32 product)."""
+    pd = w["pairs"] * head_dim
+    work = {  # bytes, FLOPs, rate
+        "fwd": (4 * w["tensor"] + w["rows"] + w["seg"], 4 * pd, F32_FLOPS),
+        "bwd": (8 * w["tensor"] + w["rows"] + w["seg"], 3 * 10 * pd, TF32_FLOPS),
+        "bwd_dkv": (6 * w["tensor"] + 2 * w["rows"] + w["seg"], 3 * 8 * pd, TF32_FLOPS),
+        "bwd_dq": (5 * w["tensor"] + 2 * w["rows"] + w["seg"], 3 * 6 * pd, TF32_FLOPS),
+    }
+    out = {}
+    for name, (nbytes, flops, rate) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        out[name] = dict(bytes=nbytes, flops=flops, bytes_ms=t_bytes, ops_ms=t_ops,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend torch's scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    names = {b.value: name for name, b in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, attn_mask=mask)), "unknown")
+
+
 def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) -> dict:
-    """K2 against flash_mha_ref at [B, L, heads, head_dim] with ``valid``."""
+    """K2 against flash_mha_ref at [B, L, heads, head_dim] with ``valid``; the
+    backward alone on the route ``bwd_route`` picks; SDPA as the yardstick."""
     B, L = valid.shape
     g = torch.Generator(device=device).manual_seed(SEED)
     q, k, v, cot = (torch.randn((B, L, heads, head_dim), generator=g, device=device)
                     for _ in range(4))
     qkv = [t.requires_grad_() for t in (q, k, v)]
+    route = fa.bwd_route(L, heads, head_dim)
 
     def fwd_bwd(fn):
         o = fn(*qkv, valid)
@@ -315,32 +403,64 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
         plain_fwd_ms = cuda_ms(lambda: fa.flash_mha_ref(q, k, v, valid))
     fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha))
     plain_fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha_ref))
-    # each backward kernel alone, and the plain backward (dQ, dK, dV together)
+    # the backward as autograd runs it, then each of its kernels alone
     o = fa.flash_mha(*qkv, valid)
-    _, dkv_fn, dq_fn = fa._kernel_fns()
-    ctx_q, ctx_k, ctx_v, seg, out, lse = o.grad_fn.saved_tensors
-    di = (cot * out).sum(-1).transpose(1, 2).contiguous()
-    scratch = [torch.empty_like(q) for _ in range(3)]
-    common = [t.data_ptr() for t in (ctx_q, ctx_k, ctx_v, seg, cot, lse, di)]
+    saved = o.grad_fn.saved_tensors
+    sq, sk, sv, seg, out, lse = saved
+    bwd_ms = cuda_ms(lambda: fa._backward(*saved, cot))
+    _, fused_fn, dkv_fn, dq_fn = fa._kernel_fns()
+    dq_, dk_, dv_ = (torch.empty_like(q) for _ in range(3))
     dims = (B, L, heads, head_dim, 1.0 / head_dim ** 0.5)
-    dkv_ms = cuda_ms(lambda: fa._launch("dK/dV", dkv_fn, q.device, *common,
-                                        scratch[0].data_ptr(), scratch[1].data_ptr(), *dims))
-    dq_ms = cuda_ms(lambda: fa._launch("dQ", dq_fn, q.device, *common,
-                                       scratch[2].data_ptr(), *dims))
+    kernel_ms = {}
+    if route == "fused":
+        ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, out, cot, lse, dq_, dk_, dv_)]
+        kernel_ms["bwd"] = cuda_ms(lambda: fa._launch("fused backward", fused_fn, device, *ptrs, *dims))
+    else:
+        di = (cot * out).sum(-1).transpose(1, 2).contiguous()
+        common = [t.data_ptr() for t in (sq, sk, sv, seg, cot, lse, di)]
+        kernel_ms["bwd_dkv"] = cuda_ms(lambda: fa._launch(
+            "dK/dV", dkv_fn, device, *common, dk_.data_ptr(), dv_.data_ptr(), *dims))
+        kernel_ms["bwd_dq"] = cuda_ms(lambda: fa._launch(
+            "dQ", dq_fn, device, *common, dq_.data_ptr(), *dims))
     o_ref = fa.flash_mha_ref(*qkv, valid)
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_ref, qkv, cot, retain_graph=True))
-    del o, o_ref
-    emit("k2", case=name, shape=[B, L, heads, head_dim],
+    del o, o_ref, saved, sq, sk, sv, seg, out, lse
+
+    # the yardstick: one scaled_dot_product_attention call, [B, H, L, Dh] with
+    # the segment-equality mask (True = may attend)
+    lib_qkv = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    seg_ids = valid.to(torch.int32)
+    mask = seg_ids[:, None, :, None] == seg_ids[:, None, None, :]
+    lib_cot = cot.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(*lib_qkv, attn_mask=mask)  # noqa: E731
+    backend = sdpa_backend(*lib_qkv, mask)
+    lib_o = sdpa()
+    lib_err = float((lib_o.detach().transpose(1, 2) - want[0]).abs().max()) / scale["o"]
+    with torch.no_grad():
+        library_fwd_ms = cuda_ms(sdpa)
+    library_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), lib_qkv, lib_cot))
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_o, lib_qkv, lib_cot, retain_graph=True))
+    del lib_o, lib_qkv, mask
+
+    bounds = k2_bounds(k2_work(valid, heads, head_dim), head_dim)
+    emit("k2", case=name, shape=[B, L, heads, head_dim], route=route,
          valid_share=float(valid.mean()), max_abs_err=abs_err, max_rel_err=rel_err,
          tolerance=f"|err| <= tol * max(1, max|plain|), tol {tol}",
          bitwise_repeatable=bitwise, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
          fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms,
-         bwd_dkv_ms=dkv_ms, bwd_dq_ms=dq_ms, plain_bwd_ms=plain_bwd_ms)
+         bwd_ms=bwd_ms, kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms,
+         library_backend=backend, library_fwd_rel_err=lib_err,
+         library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms,
+         library_fwd_bwd_ms=library_fwd_bwd_ms,
+         bounds=bounds, share_of_bound={
+             "fwd": bounds["fwd"]["bound_ms"] / fwd_ms,
+             **{kn: bounds[kn]["bound_ms"] / t for kn, t in kernel_ms.items()}})
     for n in names:
         check(rel_err[n] <= tol[n], f"K2 {name}: {n} off by {rel_err[n]} of max|plain|")
     check(bitwise, f"K2 {name}: two launches differ")
-    return dict(abs_err=abs_err, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
-                bwd_dkv_ms=dkv_ms, bwd_dq_ms=dq_ms, plain_bwd_ms=plain_bwd_ms)
+    return dict(abs_err=abs_err, route=route, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms, bounds=bounds,
+                library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms)
 
 
 def phase_train(device) -> int:
@@ -428,13 +548,17 @@ def bst_data() -> tuple[dict, dict]:
             strip(gen.sample(EVAL_BATCHES * BST_BATCH, seed=2)))
 
 
-def k2_counts() -> tuple[int, int, int]:
-    return fa.flash_mha.launches_fwd, fa.flash_mha.launches_bwd_dkv, fa.flash_mha.launches_bwd_dq
+K2_COUNTERS = ("fwd", "bwd", "bwd_dkv", "bwd_dq")
+
+
+def k2_counts() -> dict:
+    return {n: getattr(fa.flash_mha, f"launches_{n}") for n in K2_COUNTERS}
 
 
 def reset_counts():
     ek.sorted_scatter_add.launches = 0
-    fa.flash_mha.launches_fwd = fa.flash_mha.launches_bwd_dkv = fa.flash_mha.launches_bwd_dq = 0
+    for n in K2_COUNTERS:
+        setattr(fa.flash_mha, f"launches_{n}", 0)
 
 
 def _set_flash(model, on: bool):
@@ -469,8 +593,7 @@ def phase_bst_train(device, train, test) -> dict:
     trainer, state = _bst_fit(model, device, train, log_fn)
     ev = trainer.evaluate(state, batch_iterator(test, BST_BATCH, shuffle=False), exact=True)
     torch.cuda.synchronize()
-    k1 = ek.sorted_scatter_add.launches
-    fwd, dkv, dq = k2_counts()
+    launches = dict(k1=ek.sorted_scatter_add.launches, **k2_counts())
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = np.diff(np.array(stamps))[-TIMED_STEPS:] * 1e3
@@ -484,7 +607,8 @@ def phase_bst_train(device, train, test) -> dict:
     )
     path_diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
     auc_diff = abs(ev["eval_auc_exact"] - plain_ev["eval_auc_exact"])
-    want = dict(k1=4 * STEPS, fwd=2 * (STEPS + EVAL_BATCHES), dkv=2 * STEPS, dq=2 * STEPS)
+    # L 101 takes the fused backward: one launch per block and step, no long-route launch
+    want = dict(k1=4 * STEPS, fwd=2 * (STEPS + EVAL_BATCHES), bwd=2 * STEPS, bwd_dkv=0, bwd_dq=0)
     emit("bst_train", steps=state.step, batch=BST_BATCH, item_vocab=BST_ITEMS,
          cat_vocab=BST_CATS, history=BST_T, table_dtype="float32", attention="flash (K2)",
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
@@ -492,7 +616,7 @@ def phase_bst_train(device, train, test) -> dict:
          ms_per_step_min=float(step_ms.min()), ms_per_step_max=float(step_ms.max()),
          examples_per_s=BST_BATCH / (float(np.median(step_ms)) / 1e3),
          eval=ev, peak_memory_gib=peak, seconds=wall, auc_margin=BST_AUC_MARGIN,
-         launches=dict(k1=k1, fwd=fwd, dkv=dkv, dq=dq), expected_launches=want,
+         launches=launches, expected_launches=want,
          plain_attention_losses=plain_losses, plain_attention_eval=plain_ev,
          flash_vs_plain_max_loss_diff=path_diff, flash_vs_plain_auc_diff=auc_diff,
          flash_vs_plain_tolerance=dict(loss=BST_PATHS_LOSS_TOL, auc=BST_PATHS_AUC_TOL))
@@ -502,12 +626,56 @@ def phase_bst_train(device, train, test) -> dict:
     check(ev["eval_batches"] == EVAL_BATCHES, "BST eval batch count")
     check(ev["eval_auc"] > 0.5 + BST_AUC_MARGIN, f"BST eval_auc {ev['eval_auc']}")
     check(ev["eval_auc_exact"] > 0.5 + BST_AUC_MARGIN, f"BST eval_auc_exact {ev['eval_auc_exact']}")
-    check(dict(k1=k1, fwd=fwd, dkv=dkv, dq=dq) == want,
-          f"BST launches k1 {k1} fwd {fwd} dkv {dkv} dq {dq}, wanted {want}")
+    check(launches == want, f"BST launches {launches}, wanted {want}")
     check(len(plain_losses) == STEPS, "plain-attention BST step count")
     check(path_diff <= BST_PATHS_LOSS_TOL, f"flash vs plain BST losses differ by {path_diff}")
     check(auc_diff <= BST_PATHS_AUC_TOL, f"flash vs plain BST eval AUC differ by {auc_diff}")
-    return dict(k1=k1, fwd=fwd, dkv=dkv, dq=dq)
+    return launches
+
+
+def phase_bst_long(device) -> dict:
+    """BST at history 1,000 (L 1,001, the long backward route): a few
+    Trainer steps with flash, then with plain attention from the same init."""
+    data = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=BST_LONG_T,
+                             seed=SEED).sample(BST_LONG_STEPS * BST_LONG_BATCH, seed=1)
+    data = {k: v for k, v in data.items() if not k.startswith("neg_")}
+    model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, max_len=BST_LONG_T + 1, device=device)
+    init_model(model, seed=SEED)
+    plain_model = copy.deepcopy(model)
+    _set_flash(model, True)
+
+    def fit(m, log):
+        loss_fn, eval_fn = make_ctr_task(m)
+        cfg = TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED)
+        trainer = Trainer(loss_fn, cfg, eval_fn, device=device)
+        state = trainer.init_state(lambda: m)
+        trainer.fit(state, batch_iterator(data, BST_LONG_BATCH, seed=SEED), BST_LONG_STEPS,
+                    log_fn=lambda x: log.append((time.perf_counter(), x["loss"])))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    flash = []
+    fit(model, flash)
+    torch.cuda.synchronize()
+    launches = dict(k1=ek.sorted_scatter_add.launches, **k2_counts())
+    plain = []
+    fit(plain_model, plain)
+    losses, plain_losses = [x for _, x in flash], [x for _, x in plain]
+    diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    step_ms = np.diff([t for t, _ in flash]) * 1e3
+    plain_step_ms = np.diff([t for t, _ in plain]) * 1e3
+    want = dict(k1=4 * BST_LONG_STEPS, fwd=2 * BST_LONG_STEPS, bwd=0,
+                bwd_dkv=2 * BST_LONG_STEPS, bwd_dq=2 * BST_LONG_STEPS)
+    emit("bst_long", steps=BST_LONG_STEPS, batch=BST_LONG_BATCH, history=BST_LONG_T,
+         losses=losses, plain_attention_losses=plain_losses, flash_vs_plain_max_loss_diff=diff,
+         tolerance=BST_PATHS_LOSS_TOL, ms_per_step_median=float(np.median(step_ms)),
+         plain_ms_per_step_median=float(np.median(plain_step_ms)),
+         launches=launches, expected_launches=want)
+    check(len(losses) == len(plain_losses) == BST_LONG_STEPS, "BST long step count")
+    check(all(math.isfinite(x) for x in losses), "non-finite BST long loss")
+    check(launches == want, f"BST long launches {launches}, wanted {want}")
+    check(diff <= BST_PATHS_LOSS_TOL, f"flash vs plain BST long losses differ by {diff}")
+    return launches
 
 
 def _small_bst(device, state_dict, data, flash: bool) -> list[float]:
@@ -531,14 +699,82 @@ def phase_bst_card_cpu(device):
     ).state_dict()
     before = k2_counts()
     card = _small_bst(device, init, data, flash=True)
-    launched = [a - b for a, b in zip(k2_counts(), before)]
+    launched = {n: c - before[n] for n, c in k2_counts().items()}
     cpu = _small_bst(torch.device("cpu"), init, data, flash=True)  # flash_mha_ref
     diff = max(abs(a - b) for a, b in zip(card, cpu))
     emit("bst_card_cpu", card_losses=card, cpu_losses=cpu, max_abs_diff=diff,
          tolerance=CARD_CPU_LOSS_TOL, k2_launches_on_card=launched)
     check(len(card) == len(cpu) == 3, "BST card/CPU step count")
-    check(launched == [3, 3, 3], f"card run launched K2 {launched} times, wanted 3 each")
+    want = dict(fwd=3, bwd=3, bwd_dkv=0, bwd_dq=0)  # L 21: the fused backward
+    check(launched == want, f"card run launched K2 {launched}, wanted {want}")
     check(diff <= CARD_CPU_LOSS_TOL, f"BST card vs CPU losses differ by {diff}")
+
+
+# kernel-name fragments for the profile's parts, matched in this order
+PROFILE_PARTS = (
+    ("k2_fwd", ("flash_fwd_kernel",)),
+    ("k2_bwd", ("flash_bwd_",)),
+    ("k1", ("chunk_sum_kernel", "join_kernel")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_", "sm80_")),
+    ("copies", ("memcpy", "Memcpy", "memset", "Memset")),
+)
+
+
+def profile_bst(device, steps: int = 10) -> dict:
+    """The BST step at bench_bst width with flash attention: synced step
+    time (``float(loss)`` each step), unsynced step time and the host's
+    enqueue time, then ``torch.profiler`` over ``steps`` steps: device time
+    by part (kernel times summed by name), device busy time and kernel
+    launches per step. Uses only the package's public entry points, so it
+    profiles any tree of the port it is run in."""
+    train, _ = bst_data()
+    model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, device=device)
+    init_model(model, seed=SEED)
+    _set_flash(model, True)
+    loss_fn, eval_fn = make_ctr_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED),
+                      eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    batches = batch_iterator(train, BST_BATCH, seed=SEED, epochs=None)
+    stamps = []
+    state, _ = trainer.fit(state, batches, 20, log_fn=lambda m: stamps.append(time.perf_counter()))
+    synced = float(np.median(np.diff(stamps)[-10:]) * 1e3)
+    quiet = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=10**9, eval_every=0, seed=SEED),
+                    eval_fn, device=device)
+    qstate = quiet.init_state(lambda: model)
+    qstate, _ = quiet.fit(qstate, batches, 5)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qstate, _ = quiet.fit(qstate, batches, 20)
+    enqueue = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    unsynced = (time.perf_counter() - t0) / 20 * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        qstate, _ = quiet.fit(qstate, batches, steps)
+        torch.cuda.synchronize()
+    # device activity only: kernels, copies and fills; not the GPU spans of
+    # record_function annotations (Optimizer.step), which hold idle time
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    parts = {name: 0.0 for name, _ in PROFILE_PARTS}
+    parts["other"] = 0.0
+    by_name = {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        part = next((n for n, frags in PROFILE_PARTS if any(f in e.name for f in frags)), "other")
+        parts[part] += us
+    first = min(e.time_range.start for e in kernels)
+    last = max(e.time_range.end for e in kernels)
+    busy = sum(parts.values()) / steps / 1e3
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:12]
+    return dict(steps=steps, synced_ms_per_step=synced, unsynced_ms_per_step=unsynced,
+                host_enqueue_ms_per_step=enqueue, device_busy_ms_per_step=busy,
+                device_span_ms_per_step=(last - first) / steps / 1e3,
+                launches_per_step=len(kernels) / steps,
+                parts_ms_per_step={n: t / steps / 1e3 for n, t in parts.items()},
+                top_kernels_ms_per_step={n: t / steps / 1e3 for n, t in top})
 
 
 def main() -> int:
@@ -546,57 +782,93 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--profile-bst"]:
+        smi = phase_device()
+        emit("profile_bst", **profile_bst(device))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"usage: {sys.argv[0]} [--profile-bst]", file=sys.stderr)
+        return 2
     smi = phase_device()
     phase_build()
     bst_train, bst_test = bst_data()
     k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in bst_train.items()})
-    r5 = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=1000, seed=SEED)
-    r5_valid = k2_valid(r5.sample(128, seed=1)["pos_his_item"], device)
-    k2 = {
-        "bst": phase_k2(device, "bst_b1024_L101_Dh9",
-                        k2_valid(bst_train["pos_his_item"][:BST_BATCH], device), 4, 9),
-        "r5_dh9": phase_k2(device, "probe_b128_L1001_Dh9", r5_valid, 4, 9),
-        "r5_dh64": phase_k2(device, "probe_b128_L1001_Dh64", r5_valid, 4, 64),
+    def history_valid(max_len, batch):
+        gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=max_len, seed=SEED)
+        return k2_valid(gen.sample(batch, seed=1)["pos_his_item"], device)
+
+    r5_valid = history_valid(1000, 128)
+    k2_cases = {  # key: (case name, valid, head dim, backward route)
+        "bst": ("bst_b1024_L101_Dh9", k2_valid(bst_train["pos_his_item"][:BST_BATCH], device),
+                9, "fused"),
+        "l128": ("b256_L128_Dh9", history_valid(127, 256), 9, "fused"),
+        "l129": ("b256_L129_Dh9", history_valid(128, 256), 9, "long"),
+        "r5_dh9": ("probe_b128_L1001_Dh9", r5_valid, 9, "long"),
+        "r5_dh64": ("probe_b128_L1001_Dh64", r5_valid, 64, "long"),
     }
+    k2 = {}
+    for key, (case, valid, head_dim, route) in k2_cases.items():
+        k2[key] = phase_k2(device, case, valid, 4, head_dim)
+        check(k2[key]["route"] == route, f"K2 {case} took the {k2[key]['route']} route")
     dlrm_k1 = phase_train(device)
     phase_card_cpu(device)
     bst_launches = phase_bst_train(device, bst_train, bst_test)
+    long_launches = phase_bst_long(device)
     phase_bst_card_cpu(device)
     print(smi, flush=True)
     main_case = k1["bf16_order"]  # the bf16 table's backward: bf16 cotangent + order
-    bst = k2["bst"]
     kernels = [{
         "name": "sorted_scatter_add",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": dlrm_k1 + bst_launches["k1"],  # DLRM run + BST run
+        # DLRM run + the two BST runs
+        "launches": dlrm_k1 + bst_launches["k1"] + long_launches["k1"],
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": "bytes",
+        # index_add_ into a fresh zero table
+        "library_ms": main_case["library_ms"],
         # BST's item-history backward (f32 + order, 102,400 ids into [400,000, 18])
         "bst_item_history_ms": k1["bst_item_history_f32_order"]["ms"],
         "bst_item_history_plain_ms": k1["bst_item_history_f32_order"]["plain_ms"],
     }]
-    for key, launches, ms, plain_ms in (
-        ("fwd", bst_launches["fwd"], bst["fwd_ms"], bst["plain_fwd_ms"]),
-        ("bwd_dkv", bst_launches["dkv"], bst["bwd_dkv_ms"], bst["plain_bwd_ms"]),
-        ("bwd_dq", bst_launches["dq"], bst["bwd_dq_ms"], bst["plain_bwd_ms"]),
+    # each K2 kernel at the shape of its main path: the forward and the fused
+    # backward at BST's, the long route's two at the BST run with history 1,000
+    errs = {"fwd": ("o",), "bwd": ("dq", "dk", "dv"), "bwd_dkv": ("dk", "dv"), "bwd_dq": ("dq",)}
+    for key, case, source, launches in (
+        ("fwd", "bst", K2_SOURCE, bst_launches["fwd"] + long_launches["fwd"]),
+        ("bwd", "bst", K2_BWD_SOURCE, bst_launches["bwd"]),
+        ("bwd_dkv", "r5_dh9", K2_BWD_SOURCE, long_launches["bwd_dkv"]),
+        ("bwd_dq", "r5_dh9", K2_BWD_SOURCE, long_launches["bwd_dq"]),
     ):
-        errs = [r["abs_err"]["o"] if key == "fwd" else
-                max(r["abs_err"][n] for n in (("dk", "dv") if key == "bwd_dkv" else ("dq",)))
-                for r in k2.values()]
+        r = k2[case]
+        same_route = [x for x in k2.values() if key == "fwd" or
+                      (x["route"] == "fused") == (key == "bwd")]
         kernels.append({
             "name": f"flash_attention_{key}",
             "route": "cuda",
-            "source": K2_SOURCE,
+            "source": source,
             "replaces": K2_REPLACES,
             "tpu_kernel": K2_TPU_KERNELS[key],
-            "launches": launches,  # BST run
-            "max_abs_err": max(errs),
-            "ms": ms,  # BST shape
+            "launches": launches,
+            "max_abs_err": max(x["abs_err"][n] for x in same_route for n in errs[key]),
+            "shape": k2_cases[case][0],
+            "ms": r["fwd_ms"] if key == "fwd" else r["kernel_ms"][key],
             # the plain forward; for the backward kernels the whole plain backward
-            "plain_ms": plain_ms,
+            "plain_ms": r["plain_fwd_ms"] if key == "fwd" else r["plain_bwd_ms"],
+            "bound_ms": r["bounds"][key]["bound_ms"],
+            "bound_by": r["bounds"][key]["bound_by"],
+            # scaled_dot_product_attention's forward; its whole backward for the others
+            "library_ms": r["library_fwd_ms"] if key == "fwd" else r["library_bwd_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,52 +1,46 @@
-// Flash attention with a segment-id mask, for small head dims (Dh <= 64):
-// forward, dK/dV and dQ kernels.
+// Flash attention forward with a segment-id mask, for small head dims (Dh <= 64).
 //
-// Replaces the TPU kernels that recommender_tpu/nn/transformer.py::_flash_mha
+// Replaces the TPU kernel that recommender_tpu/nn/transformer.py::_flash_mha
 // reaches through jax.experimental.pallas.ops.tpu.flash_attention:
-// _flash_attention_impl (forward, saving the row log-sum-exp),
-// _flash_attention_bwd_dkv and _flash_attention_bwd_dq. It computes the
-// same function on every row the TPU kernel defines,
+// _flash_attention_impl (jax 0.9.0, flash_attention.py:589), the forward,
+// which saves the row log-sum-exp for the backward. The backward is
+// flash_attention_bwd.cu. It computes the same function on every row the TPU
+// kernel defines,
 //
 //     o[b, i, h, :] = sum_j softmax_j(scale * q[b,i,h,:] . k[b,j,h,:]) v[b,j,h,:]
 //
-// over the keys j with seg[b, j] == seg[b, i] (SegmentIds(seg, seg)), and
-// its gradients. Every row sees itself, so no row is fully masked. Unlike
-// the TPU wrapper it pads neither L to a 128-row block nor Dh to 128 lanes:
-// the ragged edges are masked here, so `scale` is 1/sqrt(real Dh) and no
-// inert padding position takes part.
+// over the keys j with seg[b, j] == seg[b, i] (SegmentIds(seg, seg)). Every
+// row sees itself, so no row is fully masked. Unlike the TPU wrapper it pads
+// neither L to a 128-row block nor Dh to 128 lanes: the ragged edges are
+// masked here, so `scale` is 1/sqrt(real Dh) and no inert padding position
+// takes part.
 //
-// Layout: q, k, v, o, dO, dQ, dK, dV are f32 [B, L, H, Dh] (heads-last,
-// contiguous); seg is int32 [B, L]; lse and di are f32 [B, H, L].
+// Layout: q, k, v, o are f32 [B, L, H, Dh] (heads-last, contiguous); seg is
+// int32 [B, L]; lse is f32 [B, H, L].
 //
 // What bounds it on the card: at BST's shape (B 1024, L 101, H 4, Dh 9)
 // q, k, v and o are about 60 MB together and the forward is only ~0.75
-// GFLOP, so neither bytes nor tensor-core FLOPs set its time (the tensor
-// cores have nothing to do at Dh = 9): the per-thread FMA loop over
-// shared-memory rows and its latency do. Measured on an H100 80GB HBM3
-// (700 W limit): forward 0.25 ms, i.e. ~240 GB/s of the 3.35 TB/s.
+// GFLOP, so neither bytes nor FLOPs set its time: the per-thread FMA loop
+// over shared-memory rows and its latency do. Measured on an H100 80GB HBM3
+// (700 W limit): 0.25 ms, i.e. ~240 GB/s of the 3.35 TB/s.
 //
 // Design:
-// * One block per (batch, query or key tile of 64 rows, head); one row per
-//   thread (two threads per row for Dh > 32, each holding half of the row
-//   and combining dot products with one shuffle). The thread keeps its own
-//   row's vectors and accumulators in registers; the other side's rows
-//   stream through shared memory in tiles of 64, read by every thread of
-//   the block at the same address (broadcast, no bank conflicts).
+// * One block per (batch, query tile of 64 rows, head); one row per thread
+//   (two threads per row for Dh > 32, each holding half of the row and
+//   combining dot products with one shuffle). The thread keeps its own row's
+//   vectors and accumulators in registers; the key rows stream through
+//   shared memory in tiles of 64, read by every thread of the block at the
+//   same address (broadcast, no bank conflicts).
 // * Dh is padded in registers and shared memory to the next supported
 //   width DPAD (8, 12, 16, 24, 32, 48, 64) with zeros, so the dot products
 //   are exact and unrolled; loads and stores are guarded by the real Dh.
 // * Tiles are loaded and results stored through shared memory, so that
 //   consecutive threads touch consecutive addresses of a row.
-// * Forward: online softmax in base 2 (q is pre-scaled by scale * log2 e);
-//   the running max is rescaled only when a key raises it. It stores the
+// * Online softmax in base 2 (q is pre-scaled by scale * log2 e); the
+//   running max is rescaled only when a key raises it. It stores the
 //   natural-log log-sum-exp per row for the backward.
-// * Backward: di = rowsum(dO * O) comes from the caller. The dK/dV kernel
-//   owns key rows and loops over query tiles; the dQ kernel owns query
-//   rows and loops over key tiles. Both recompute P from q, k and the
-//   log-sum-exp. Each output element is written by one thread: no atomics,
-//   so every launch is bitwise deterministic.
 //
-// C interface for ctypes: pointers and the stream as void*; each entry
+// C interface for ctypes: pointers and the stream as void*; the entry
 // returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
@@ -212,172 +206,41 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lse[((int64_t)w.b * H + w.h) * L + i] = (m + log2f(l)) * kLn2;
 }
 
-template <int DT, int TPR>
-__global__ void __launch_bounds__(Cfg<DT, TPR>::kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ seg,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, float* __restrict__ dk,
-                     float* __restrict__ dv, int L, int H, int Dh, float scale) {
-  using C = Cfg<DT, TPR>;
-  __shared__ float qs[kRows * C::kRs];
-  __shared__ float dos[kRows * C::kRs];
-  __shared__ float lse_s[kRows];
-  __shared__ float di_s[kRows];
-  __shared__ int segs[kRows];
-  const int tid = threadIdx.x, r = tid / TPR, c = tid % TPR;
-  const Where w = where(L, H, Dh);  // row0 is this block's key tile
-  const int64_t rstride = (int64_t)H * Dh;
-  const int64_t rows_base = ((int64_t)w.b * H + w.h) * L;
-  const int j = w.row0 + r;
-
-  float kr[DT], vr[DT];
-  load_tile<DT, TPR>(qs, k, w.base, w.row0, L, rstride, Dh, tid);
-  load_tile<DT, TPR>(dos, v, w.base, w.row0, L, rstride, Dh, tid);
-  __syncthreads();
-  row_to_regs<DT, TPR>(kr, qs, r, c, scale * kLog2e);
-  row_to_regs<DT, TPR>(vr, dos, r, c, 1.f);
-  const int kseg = j < L ? seg[(int64_t)w.b * L + j] : 0;
-  __syncthreads();
-
-  float dkr[DT], dvr[DT];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) dkr[d] = dvr[d] = 0.f;
-  for (int q0 = 0; q0 < L; q0 += kRows) {
-    load_tile<DT, TPR>(qs, q, w.base, q0, L, rstride, Dh, tid);
-    load_tile<DT, TPR>(dos, dout, w.base, q0, L, rstride, Dh, tid);
-    load_rows<float>(lse_s, lse, rows_base, q0, L, 0.f, kLog2e, tid);
-    load_rows<float>(di_s, di, rows_base, q0, L, 0.f, 1.f, tid);
-    load_rows<int>(segs, seg, (int64_t)w.b * L, q0, L, 0, 1, tid);
-    __syncthreads();
-    const int n = min(kRows, L - q0);
-    for (int i = 0; i < n; ++i) {
-      const float* qi = qs + i * C::kRs + c * C::kCs;
-      const float* doi = dos + i * C::kRs + c * C::kCs;
-      const float s = dot<DT, TPR>(kr, qi);
-      const float dp = dot<DT, TPR>(vr, doi);
-      if (segs[i] == kseg) {
-        const float p = exp2f(s - lse_s[i]);
-        const float ds = p * (dp - di_s[i]);
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          dvr[d] = fmaf(p, doi[d], dvr[d]);
-          dkr[d] = fmaf(ds, qi[d], dkr[d]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  regs_to_row<DT, TPR>(qs, dkr, r, c, scale);
-  regs_to_row<DT, TPR>(dos, dvr, r, c, 1.f);
-  __syncthreads();
-  store_tile<DT, TPR>(dk, qs, w.base, w.row0, L, rstride, Dh, tid);
-  store_tile<DT, TPR>(dv, dos, w.base, w.row0, L, rstride, Dh, tid);
-}
-
-template <int DT, int TPR>
-__global__ void __launch_bounds__(Cfg<DT, TPR>::kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ seg,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ di, float* __restrict__ dq, int L,
-                    int H, int Dh, float scale) {
-  using C = Cfg<DT, TPR>;
-  __shared__ float ks[kRows * C::kRs];
-  __shared__ float vs[kRows * C::kRs];
-  __shared__ int segs[kRows];
-  const int tid = threadIdx.x, r = tid / TPR, c = tid % TPR;
-  const Where w = where(L, H, Dh);
-  const int64_t rstride = (int64_t)H * Dh;
-  const int i = w.row0 + r;
-
-  float qr[DT], dor[DT];
-  load_tile<DT, TPR>(ks, q, w.base, w.row0, L, rstride, Dh, tid);
-  load_tile<DT, TPR>(vs, dout, w.base, w.row0, L, rstride, Dh, tid);
-  __syncthreads();
-  row_to_regs<DT, TPR>(qr, ks, r, c, scale * kLog2e);
-  row_to_regs<DT, TPR>(dor, vs, r, c, 1.f);
-  const bool live = i < L;
-  const int qseg = live ? seg[(int64_t)w.b * L + i] : 0;
-  const int64_t row = ((int64_t)w.b * H + w.h) * L + i;
-  const float lse_i = live ? lse[row] * kLog2e : 0.f;
-  const float di_i = live ? di[row] : 0.f;
-  __syncthreads();
-
-  float dqr[DT];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) dqr[d] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += kRows) {
-    load_tile<DT, TPR>(ks, k, w.base, k0, L, rstride, Dh, tid);
-    load_tile<DT, TPR>(vs, v, w.base, k0, L, rstride, Dh, tid);
-    load_rows<int>(segs, seg, (int64_t)w.b * L, k0, L, 0, 1, tid);
-    __syncthreads();
-    const int n = min(kRows, L - k0);
-    for (int j = 0; j < n; ++j) {
-      const float* kj = ks + j * C::kRs + c * C::kCs;
-      const float s = dot<DT, TPR>(qr, kj);
-      const float dp = dot<DT, TPR>(dor, vs + j * C::kRs + c * C::kCs);
-      if (segs[j] == qseg) {
-        const float ds = exp2f(s - lse_i) * (dp - di_i);
-#pragma unroll
-        for (int d = 0; d < DT; ++d) dqr[d] = fmaf(ds, kj[d], dqr[d]);
-      }
-    }
-    __syncthreads();
-  }
-  regs_to_row<DT, TPR>(ks, dqr, r, c, scale);
-  __syncthreads();
-  store_tile<DT, TPR>(dq, ks, w.base, w.row0, L, rstride, Dh, tid);
-}
-
 struct Args {
   const float *q, *k, *v;
   const int* seg;
-  const float *dout, *lse_in, *di;
-  float *o, *lse, *dq, *dk, *dv;
+  float *o, *lse;
   int B, L, H, Dh;
   float scale;
 };
 
-enum Which { kFwd, kDkv, kDq };
-
 template <int DT, int TPR>
-void launch(Which which, const Args& a, cudaStream_t stream) {
+void launch(const Args& a, cudaStream_t stream) {
   const int tiles = (a.L + kRows - 1) / kRows;
   const dim3 grid((unsigned)((int64_t)a.B * tiles * a.H));
-  const int threads = Cfg<DT, TPR>::kThreads;
-  if (which == kFwd)
-    flash_fwd_kernel<DT, TPR><<<grid, threads, 0, stream>>>(
-        a.q, a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale);
-  else if (which == kDkv)
-    flash_bwd_dkv_kernel<DT, TPR><<<grid, threads, 0, stream>>>(
-        a.q, a.k, a.v, a.seg, a.dout, a.lse_in, a.di, a.dk, a.dv, a.L, a.H,
-        a.Dh, a.scale);
-  else
-    flash_bwd_dq_kernel<DT, TPR><<<grid, threads, 0, stream>>>(
-        a.q, a.k, a.v, a.seg, a.dout, a.lse_in, a.di, a.dq, a.L, a.H, a.Dh,
-        a.scale);
+  flash_fwd_kernel<DT, TPR><<<grid, Cfg<DT, TPR>::kThreads, 0, stream>>>(
+      a.q, a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale);
 }
 
-int dispatch(Which which, const Args& a, void* stream) {
+int dispatch(const Args& a, void* stream) {
   if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.Dh <= 0 || a.Dh > 64 ||
       (int64_t)a.B * ((a.L + kRows - 1) / kRows) * a.H > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.Dh <= 8)
-    launch<8, 1>(which, a, s);
+    launch<8, 1>(a, s);
   else if (a.Dh <= 12)
-    launch<12, 1>(which, a, s);
+    launch<12, 1>(a, s);
   else if (a.Dh <= 16)
-    launch<16, 1>(which, a, s);
+    launch<16, 1>(a, s);
   else if (a.Dh <= 24)
-    launch<24, 1>(which, a, s);
+    launch<24, 1>(a, s);
   else if (a.Dh <= 32)
-    launch<32, 1>(which, a, s);
+    launch<32, 1>(a, s);
   else if (a.Dh <= 48)
-    launch<24, 2>(which, a, s);
+    launch<24, 2>(a, s);
   else
-    launch<32, 2>(which, a, s);
+    launch<32, 2>(a, s);
   return (int)cudaGetLastError();
 }
 
@@ -396,45 +259,6 @@ extern "C" int rtt_flash_attention_fwd(const void* q, const void* k, const void*
   a.o = static_cast<float*>(o);
   a.lse = static_cast<float*>(lse);
   a.B = B; a.L = L; a.H = H; a.Dh = Dh; a.scale = scale;
-  return dispatch(kFwd, a, stream);
+  return dispatch(a, stream);
 }
 
-// dK, dV [B, L, H, Dh] from q, k, v, seg, dO, lse and di = rowsum(dO * O) [B, H, L].
-extern "C" int rtt_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                           const void* seg, const void* dout,
-                                           const void* lse, const void* di,
-                                           void* dk, void* dv, int B, int L,
-                                           int H, int Dh, float scale,
-                                           void* stream) {
-  Args a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.seg = static_cast<const int*>(seg);
-  a.dout = static_cast<const float*>(dout);
-  a.lse_in = static_cast<const float*>(lse);
-  a.di = static_cast<const float*>(di);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  a.B = B; a.L = L; a.H = H; a.Dh = Dh; a.scale = scale;
-  return dispatch(kDkv, a, stream);
-}
-
-// dQ [B, L, H, Dh] from the same inputs.
-extern "C" int rtt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                          const void* seg, const void* dout,
-                                          const void* lse, const void* di,
-                                          void* dq, int B, int L, int H, int Dh,
-                                          float scale, void* stream) {
-  Args a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.seg = static_cast<const int*>(seg);
-  a.dout = static_cast<const float*>(dout);
-  a.lse_in = static_cast<const float*>(lse);
-  a.di = static_cast<const float*>(di);
-  a.dq = static_cast<float*>(dq);
-  a.B = B; a.L = L; a.H = H; a.Dh = Dh; a.scale = scale;
-  return dispatch(kDq, a, stream);
-}

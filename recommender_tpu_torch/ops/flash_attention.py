@@ -2,11 +2,18 @@
 
 Port of the attention kernel that ``recommender_tpu/nn/transformer.py::
 _flash_mha`` reaches: JAX's Pallas TPU ``flash_attention`` (its forward and
-its two backward kernels). Here the three kernels are hand-written CUDA,
-``csrc/flash_attention.cu``, bound through ``_FlashMHA``, a
-``torch.autograd.Function``: the forward saves the row log-sum-exp, the
-backward computes ``di = rowsum(dO * O)`` and launches the dK/dV kernel and
-then the dQ kernel.
+its two backward kernels). Here the kernels are hand-written CUDA, bound
+through ``_FlashMHA``, a ``torch.autograd.Function``: the forward
+(``csrc/flash_attention.cu``) saves the row log-sum-exp; the backward
+(``csrc/flash_attention_bwd.cu``) takes one of two routes, which
+``bwd_route`` picks from the shape:
+
+* ``"fused"``: one launch computes ``di = rowsum(dO * O)``, dQ, dK and dV,
+  one block per batch row holding all its heads. It takes L up to
+  ``FUSED_MAX_L`` where the block's shared memory (``fused_smem_bytes``)
+  fits; BST's L 101, H 4, Dh 9 does;
+* ``"long"``: the wrapper computes ``di``, then a dK/dV kernel and a dQ
+  kernel run, each streaming the other side's rows in tiles of 64.
 
 Semantics are the TPU kernel's ``SegmentIds(seg, seg)`` with
 ``seg = valid``: key j is visible to query i iff ``valid[b, i] ==
@@ -17,10 +24,11 @@ JAX wrapper pads L to a multiple of 128 and Dh to 128 lanes; the port pads
 neither, so its pad rows see only the real pad positions.
 
 ``flash_mha`` launches the kernels for CUDA tensors and counts the
-launches in ``flash_mha.launches_fwd``, ``.launches_bwd_dkv`` and
-``.launches_bwd_dq``. For CPU tensors it computes the same function with
-``flash_mha_ref``, the plain PyTorch version that the tests and
-``chip_smoke.py`` hold the kernels against.
+launches in ``flash_mha.launches_fwd``, ``.launches_bwd`` (fused route),
+``.launches_bwd_dkv`` and ``.launches_bwd_dq`` (long route). For CPU
+tensors it computes the same function with ``flash_mha_ref``, the plain
+PyTorch version that the tests and ``chip_smoke.py`` hold the kernels
+against.
 """
 from __future__ import annotations
 
@@ -32,23 +40,48 @@ import torch
 from recommender_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 64
+FUSED_MAX_L = 128
+# shared memory one block may use on Hopper (227 KB)
+MAX_BLOCK_SMEM = 232_448
+
+
+def fused_smem_bytes(L: int, H: int, Dh: int) -> int:
+    """Shared memory of one fused-backward block (one batch row): q, k, v
+    and dO of all heads, each span rounded up to 16 bytes and followed by 16
+    zeros; dS^T of one head [L, round16(L) + 8]; lse and di [H, L]; seg [L].
+    The same count as ``fused_smem_bytes`` in ``csrc/flash_attention_bwd.cu``."""
+    span = -(-L * H * Dh // 4) * 4 + 16
+    lds = -(-L // 16) * 16 + 8
+    return 4 * (4 * span + L * lds + 2 * H * L + L)
+
+
+def bwd_route(L: int, H: int, Dh: int) -> str:
+    """``"fused"`` where one block holds a batch row (L <= ``FUSED_MAX_L``
+    and ``fused_smem_bytes`` within ``MAX_BLOCK_SMEM``), else ``"long"``."""
+    if L <= FUSED_MAX_L and fused_smem_bytes(L, H, Dh) <= MAX_BLOCK_SMEM:
+        return "fused"
+    return "long"
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
-    """The three C entries of ``csrc/flash_attention.cu``, built at first use."""
-    lib = _build.load("flash_attention")
+    """The C entries of ``csrc/flash_attention.cu`` (forward) and
+    ``csrc/flash_attention_bwd.cu`` (fused, dK/dV, dQ), built at first use."""
+    fwd_lib = _build.load("flash_attention")
+    bwd_lib = _build.load("flash_attention_bwd")
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32, i32, i32, i32, f32, vp]  # B, L, H, Dh, scale, stream
-    fwd = lib.rtt_flash_attention_fwd
+    fwd = fwd_lib.rtt_flash_attention_fwd
     fwd.argtypes = [vp] * 6 + dims
-    dkv = lib.rtt_flash_attention_bwd_dkv
+    fused = bwd_lib.rtt_flash_attention_bwd_fused
+    fused.argtypes = [vp] * 10 + dims
+    dkv = bwd_lib.rtt_flash_attention_bwd_dkv
     dkv.argtypes = [vp] * 9 + dims
-    dq = lib.rtt_flash_attention_bwd_dq
+    dq = bwd_lib.rtt_flash_attention_bwd_dq
     dq.argtypes = [vp] * 8 + dims
-    for fn in (fwd, dkv, dq):
+    for fn in (fwd, fused, dkv, dq):
         fn.restype = i32
-    return fwd, dkv, dq
+    return fwd, fused, dkv, dq
 
 
 def _check_args(q, k, v, valid):
@@ -90,14 +123,14 @@ def _launch(name: str, fn, device, *args):
 
 
 class _FlashMHA(torch.autograd.Function):
-    """The three CUDA kernels as one differentiable op (inputs made
-    contiguous; ``seg`` int32 [B, L])."""
+    """The CUDA kernels as one differentiable op (inputs made contiguous;
+    ``seg`` int32 [B, L])."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg):
         q, k, v = (t.contiguous() for t in (q, k, v))
         B, L, H, Dh = q.shape
-        fwd, _, _ = _kernel_fns()
+        fwd = _kernel_fns()[0]
         o = torch.empty_like(q)
         lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
         _launch("forward", fwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -109,19 +142,29 @@ class _FlashMHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, seg, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        B, L, H, Dh = q.shape
-        _, dkv, dq_fn = _kernel_fns()
-        di = (do * o).sum(dim=-1).transpose(1, 2).contiguous()  # [B, H, L]
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), di.data_ptr())
-        dims = (B, L, H, Dh, _scale(Dh))
-        _launch("dK/dV", dkv, q.device, *common, dk.data_ptr(), dv.data_ptr(), *dims)
-        flash_mha.launches_bwd_dkv += 1
-        _launch("dQ", dq_fn, q.device, *common, dq.data_ptr(), *dims)
-        flash_mha.launches_bwd_dq += 1
-        return dq, dk, dv, None
+        return (*_backward(q, k, v, seg, o, lse, do.contiguous()), None)
+
+
+def _backward(q, k, v, seg, o, lse, do):
+    """dq, dk, dv by the route ``bwd_route`` picks (contiguous inputs)."""
+    B, L, H, Dh = q.shape
+    _, fused, dkv, dq_fn = _kernel_fns()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dims = (B, L, H, Dh, _scale(Dh))
+    if bwd_route(L, H, Dh) == "fused":
+        _launch("fused backward", fused, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                seg.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
+        flash_mha.launches_bwd += 1
+        return dq, dk, dv
+    di = (do * o).sum(dim=-1).transpose(1, 2).contiguous()  # [B, H, L]
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), di.data_ptr())
+    _launch("dK/dV", dkv, q.device, *common, dk.data_ptr(), dv.data_ptr(), *dims)
+    flash_mha.launches_bwd_dkv += 1
+    _launch("dQ", dq_fn, q.device, *common, dq.data_ptr(), *dims)
+    flash_mha.launches_bwd_dq += 1
+    return dq, dk, dv
 
 
 def flash_mha(q, k, v, valid) -> torch.Tensor:
@@ -140,5 +183,6 @@ def flash_mha(q, k, v, valid) -> torch.Tensor:
 
 
 flash_mha.launches_fwd = 0
+flash_mha.launches_bwd = 0
 flash_mha.launches_bwd_dkv = 0
 flash_mha.launches_bwd_dq = 0

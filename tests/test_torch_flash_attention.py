@@ -11,9 +11,10 @@ so pad query rows are defined differently on each side: forward outputs
 are compared on valid rows, and gradients under a cotangent that is zero
 on pad rows (as BST's masked readout gives), where all rows agree.
 
-The ``cuda``-marked tests hold the three CUDA kernels against
-``flash_mha_ref`` on the card and skip without one. jax is imported inside
-the tests that use it, so they also run where jax is not installed:
+The ``cuda``-marked tests hold the CUDA kernels (the forward, and the
+backward on both of its routes) against ``flash_mha_ref`` on the card and
+skip without one. jax is imported inside the tests that use it, so they
+also run where jax is not installed:
 
     python -m pytest tests/test_torch_flash_attention.py -m cuda --noconftest
 
@@ -21,8 +22,9 @@ Tolerances (f32 on both sides, sums in another order):
 * against JAX, forward 2e-6 and q/k/v gradients 1e-5 abs (inputs ~N(0, 1));
 * kernels against the plain version on the card, as a share of the
   largest magnitude of the plain result: forward 1e-5, gradients 1e-4
-  (the kernel's exp2 differs from torch's exp by a few ulp, and the
-  backward sums L terms in another order).
+  (the kernel's exp2 differs from torch's exp by a few ulp, the backward
+  sums L terms in another order, and its products are 3xTF32:
+  ``test_3xtf32_products_meet_the_tolerance_where_tf32_does_not``).
 """
 import numpy as np
 import pytest
@@ -149,6 +151,9 @@ def test_pad_queries_attend_to_pad_keys():
         ((2, 5, 2, 8), torch.float32, (2, 4)),  # valid of the wrong shape
         ((2, 5, 2, 8), torch.bfloat16, (2, 5)),  # not f32
         ((2, 0, 2, 8), torch.float32, (2, 0)),  # empty sequence
+        ((2, 5, 0, 8), torch.float32, (2, 5)),  # no head
+        ((0, 5, 2, 8), torch.float32, (0, 5)),  # empty batch
+        ((2, 5, 16), torch.float32, (2, 5)),  # not [B, L, H, Dh]
     ],
 )
 def test_flash_mha_rejects_what_the_kernel_does_not_take(shape, dtype, valid_shape):
@@ -157,13 +162,117 @@ def test_flash_mha_rejects_what_the_kernel_does_not_take(shape, dtype, valid_sha
         fa.flash_mha(q, q, q, torch.ones(valid_shape))
 
 
+@pytest.mark.parametrize("case", ["k_shape", "valid_device", "device_type"])
+def test_flash_mha_rejects_mismatched_arguments(case):
+    q = torch.zeros((2, 5, 2, 8))
+    k, valid = q, torch.ones((2, 5))
+    if case == "k_shape":
+        k = torch.zeros((2, 6, 2, 8))
+    elif case == "valid_device":
+        valid = valid.to("meta")
+    else:  # neither CPU nor CUDA
+        q, k, valid = q.to("meta"), q.to("meta"), valid.to("meta")
+    with pytest.raises(ValueError):
+        fa.flash_mha(q, k, q, valid)
+
+
+def _counts():
+    return {n: getattr(fa.flash_mha, f"launches_{n}") for n in ("fwd", "bwd", "bwd_dkv", "bwd_dq")}
+
+
 def test_cpu_path_launches_nothing():
-    q, k, v, valid, _ = _inputs(2, 9, 2, 4, seed=3)
-    before = (fa.flash_mha.launches_fwd, fa.flash_mha.launches_bwd_dkv, fa.flash_mha.launches_bwd_dq)
-    out = fa.flash_mha(*(torch.tensor(x) for x in (q, k, v, valid)))
+    q, k, v, valid, cot = _inputs(2, 9, 2, 4, seed=3)
+    before = _counts()
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = fa.flash_mha(*ts, torch.tensor(valid))
+    (out * torch.tensor(cot)).sum().backward()
     torch.testing.assert_close(out, fa.flash_mha_ref(*(torch.tensor(x) for x in (q, k, v, valid))))
-    after = (fa.flash_mha.launches_fwd, fa.flash_mha.launches_bwd_dkv, fa.flash_mha.launches_bwd_dq)
-    assert before == after
+    assert _counts() == before
+
+
+@pytest.mark.parametrize(
+    "L,H,Dh,route",
+    [
+        (1, 1, 1, "fused"),
+        (101, 4, 9, "fused"),  # BST
+        (128, 4, 9, "fused"),  # the longest fused sequence
+        (129, 4, 9, "long"),
+        (1001, 4, 9, "long"),  # the TPU flash probe
+        (1001, 4, 64, "long"),
+        (128, 1, 64, "fused"),  # 202,496 bytes of shared memory
+        (101, 4, 64, "long"),  # 4 heads of Dh 64 do not fit one block
+        (128, 2, 40, "long"),
+    ],
+)
+def test_bwd_route_is_a_function_of_the_shape(L, H, Dh, route):
+    assert fa.bwd_route(L, H, Dh) == route
+
+
+def test_fused_smem_bytes_at_bst_and_at_the_limit():
+    """BST's block: 4 spans of 101 x 4 x 9 floats (3,636, +16 zeros), dS^T
+    101 x 120, lse and di 4 x 101 each, seg 101; two such blocks fit one
+    SM's 228 KB. Over MAX_BLOCK_SMEM the route turns long."""
+    assert fa.fused_smem_bytes(101, 4, 9) == 4 * (4 * 3652 + 101 * 120 + 2 * 404 + 101) == 110_548
+    dims = [(128, h, dh) for h in range(1, 9) for dh in range(1, 65)]
+    for L, H, Dh in dims:
+        fits = fa.fused_smem_bytes(L, H, Dh) <= fa.MAX_BLOCK_SMEM
+        assert fa.bwd_route(L, H, Dh) == ("fused" if fits else "long")
+    assert {fa.bwd_route(*d) for d in dims} == {"fused", "long"}
+
+
+def _tf32_hi(x):
+    """The kernel's split of f32 x: hi = x rounded to TF32's 10 mantissa bits."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_read(x):
+    """What a TF32 tensor core reads of an f32 operand: its top 19 bits."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a, b):
+    return _tf32_hi(a).astype(np.float64) @ _tf32_hi(b).astype(np.float64)
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    al, bl = (_tf32_read(x.astype(np.float32) - h) for x, h in ((a, ah), (b, bh)))
+    ah, bh, al, bl = (x.astype(np.float64) for x in (ah, bh, al, bl))
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def test_3xtf32_products_meet_the_tolerance_where_tf32_does_not():
+    """The backward's five products (S, dP, dV, dK, dQ) emulated in numpy at
+    BST's L 101, H 4, Dh 9 (8 batch rows): with operands rounded to TF32 the
+    gradients miss BWD_REL_TOL; with the kernel's 3xTF32 split they meet it
+    with a wide margin. This is why the kernel spends three tensor-core
+    products on each f32 product."""
+    rng = np.random.default_rng(0)
+    B, L, H, Dh = 8, 101, 4, 9
+    q, k, v, do = (rng.normal(size=(B, H, L, Dh)).astype(np.float32) for _ in range(4))
+    valid = np.arange(L)[None] < rng.integers(0, L, size=B)[:, None]
+    valid[:, -1] = True
+    same = valid[:, None, :, None] == valid[:, None, None, :]
+    scale = 1 / np.sqrt(Dh)
+
+    def grads(mm):
+        t = lambda x: np.swapaxes(x, -1, -2)  # noqa: E731
+        s = np.where(same, mm(q, t(k)) * scale, -np.inf)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        di = (do * (p @ v.astype(np.float64))).sum(-1, keepdims=True)
+        ds = p * (mm(do, t(v)) - di)
+        return mm(ds, k) * scale, mm(t(ds), q) * scale, mm(t(p), do)
+
+    want = grads(lambda a, b: a.astype(np.float64) @ b.astype(np.float64))
+
+    def worst(mm):
+        return max(np.abs(g - w).max() / max(1.0, np.abs(w).max()) for g, w in zip(grads(mm), want))
+
+    assert worst(_mm_3xtf32) < BWD_REL_TOL / 100
+    assert worst(_mm_tf32) > BWD_REL_TOL
 
 
 # ------------------------------------------------------------------ on the card
@@ -171,26 +280,70 @@ def _rel_err(got, want):
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
 
 
+# (B, L, H, Dh) run on each backward route that takes the shape
+_KERNEL_SHAPES = [
+    (3, 1, 2, 9),  # a single position
+    (16, 101, 4, 9),  # BST's shape at a small batch
+    (4, 64, 4, 9),  # exactly one tile
+    (4, 65, 4, 9),  # one row into the second tile
+    (2, 130, 3, 16),
+    (2, 77, 2, 5),
+    (2, 70, 2, 24),
+    (2, 90, 2, 33),
+    (2, 129, 2, 48),
+    (2, 200, 2, 64),
+    (2, 100, 3, 3),
+    (2, 96, 2, 20),
+    (2, 111, 2, 28),
+    # one head: the fused span's last B reads reach DP - Dh floats past it
+    (2, 128, 1, 37),
+    (2, 120, 1, 50),
+    (2, 128, 1, 64),
+]
+
+
+def _kernel_cases():
+    """(B, L, H, Dh, route, valid): the shapes above; L 1, 64, 101, 127,
+    128, 129, 200 with Dh cycling through 5, 9, 16, 33, 48, 64 and H as
+    large as the fused block holds; each on both routes where the fused
+    one takes it.
+    Then BST's shape with every position valid, and with only the target
+    position valid. Together they run every head-dim instantiation of both
+    kernel files."""
+    dhs = [5, 9, 16, 33, 48, 64]
+    shapes = list(_KERNEL_SHAPES)
+    for i, L in enumerate((1, 64, 101, 127, 128, 129, 200)):
+        Dh = dhs[i % len(dhs)]
+        H = max(h for h in (1, 2, 3, 4) if h == 1 or fa.bwd_route(min(L, 128), h, Dh) == "fused")
+        shapes.append((3, L, H, Dh))
+    cases = []
+    for B, L, H, Dh in shapes:
+        for route in ("fused", "long"):
+            if route == "long" or fa.bwd_route(L, H, Dh) == "fused":
+                cases.append((B, L, H, Dh, route, "ragged"))
+    for route in ("fused", "long"):
+        for valid in ("all", "target_only"):
+            cases.append((8, 101, 4, 9, route, valid))
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "B,L,H,Dh",
-    [
-        (3, 1, 2, 9),  # a single position
-        (16, 101, 4, 9),  # BST's shape at a small batch
-        (4, 64, 4, 9),  # exactly one tile
-        (4, 65, 4, 9),  # one row into the second tile
-        (2, 130, 3, 16),
-        (2, 77, 2, 5),
-        (2, 70, 2, 24),
-        (2, 90, 2, 33),  # two threads per row from here
-        (2, 129, 2, 48),
-        (2, 200, 2, 64),
-    ],
-)
-def test_kernels_match_ref(cuda_device, B, L, H, Dh):
+@pytest.mark.parametrize("B,L,H,Dh,route,valid_kind", _kernel_cases())
+def test_kernels_match_ref(cuda_device, monkeypatch, B, L, H, Dh, route, valid_kind):
+    """The forward and the backward on ``route`` (forced where the shape
+    would take the other one) against the plain version."""
     q, k, v, valid, _ = _inputs(B, L, H, Dh, seed=B * L + Dh)
+    if valid_kind == "all":
+        valid[:] = 1.0
+    elif valid_kind == "target_only":
+        valid[:, :-1] = 0.0
+    monkeypatch.setattr(fa, "bwd_route", lambda *shape: route)
     cot = np.random.default_rng(0).normal(size=q.shape).astype(np.float32)
+    before = _counts()
     got = _port_grads(q, k, v, valid, cot, device=cuda_device)
+    launched = {n: c - before[n] for n, c in _counts().items()}
+    assert launched == ({"fwd": 1, "bwd": 1, "bwd_dkv": 0, "bwd_dq": 0} if route == "fused"
+                        else {"fwd": 1, "bwd": 0, "bwd_dkv": 1, "bwd_dq": 1})
     ts = [torch.tensor(x, device=cuda_device, requires_grad=True) for x in (q, k, v)]
     o = fa.flash_mha_ref(*ts, torch.tensor(valid, device=cuda_device))
     (o * torch.tensor(cot, device=cuda_device)).sum().backward()
@@ -203,14 +356,31 @@ def test_kernels_match_ref(cuda_device, B, L, H, Dh):
 
 
 @pytest.mark.cuda
-def test_kernels_are_bitwise_repeatable_and_counted(cuda_device):
-    q, k, v, valid, _ = _inputs(8, 101, 4, 9, seed=5)
+@pytest.mark.parametrize("L,route", [(101, "fused"), (200, "long")])
+def test_kernels_are_bitwise_repeatable_and_counted(cuda_device, L, route):
+    assert fa.bwd_route(L, 4, 9) == route
+    q, k, v, valid, _ = _inputs(8, L, 4, 9, seed=5)
     cot = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
-    n = (fa.flash_mha.launches_fwd, fa.flash_mha.launches_bwd_dkv, fa.flash_mha.launches_bwd_dq)
+    n = _counts()
     first = _port_grads(q, k, v, valid, cot, device=cuda_device)
     second = _port_grads(q, k, v, valid, cot, device=cuda_device)
     for a, b in zip(first, second):
         assert np.array_equal(a, b)
-    assert fa.flash_mha.launches_fwd == n[0] + 2
-    assert fa.flash_mha.launches_bwd_dkv == n[1] + 2
-    assert fa.flash_mha.launches_bwd_dq == n[2] + 2
+    fused = route == "fused"
+    assert _counts() == {"fwd": n["fwd"] + 2, "bwd": n["bwd"] + 2 * fused,
+                         "bwd_dkv": n["bwd_dkv"] + 2 * (not fused),
+                         "bwd_dq": n["bwd_dq"] + 2 * (not fused)}
+
+
+@pytest.mark.cuda
+def test_fused_smem_bytes_matches_the_kernel(cuda_device):
+    """The routing's count of the fused block's shared memory is the one the
+    kernel allocates (and refuses to exceed)."""
+    import ctypes
+
+    from recommender_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_fused_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for L, H, Dh in [(1, 1, 1), (101, 4, 9), (128, 4, 9), (128, 1, 64), (77, 3, 33), (128, 8, 64)]:
+        assert fn(L, H, Dh) == fa.fused_smem_bytes(L, H, Dh)
