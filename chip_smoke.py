@@ -39,12 +39,16 @@ Phases, one JSON line each (k2 one per shape):
                   events, median of 25).
 4. k2           — K2 (forward and backward) against ``flash_mha_ref`` at
                   BST's shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a
-                  real batch; fused backward), at L 128 (fused) and L 129
-                  (long route), B 256, and at the TPU probe's B 128, L 1001,
-                  H 4 with Dh 9 and 64 (long route): errors, bitwise
-                  repeatability; times of the forward, of forward +
-                  backward, of the backward and of each backward kernel
-                  alone, against the plain version and against
+                  real batch; fused forward and backward), at L 128 (fused)
+                  and L 129 (long routes), B 256, and at the TPU probe's
+                  B 128, L 1001, H 4 with Dh 9 and 64 (long routes): the
+                  routes ``fwd_route`` and ``bwd_route`` pick, errors,
+                  bitwise repeatability; times of the forward, of forward +
+                  backward, of the backward and of each kernel alone
+                  (``kernel_ms``: the forward's route, the backward's; where
+                  the forward is fused, ``fwd_long_route`` holds the long
+                  forward's time and error on the same inputs),
+                  against the plain version and against
                   ``scaled_dot_product_attention`` with the same mask (the
                   yardstick, and the backend it took); each kernel's bound
                   from bytes and FLOPs, and its share (CUDA events, median
@@ -55,12 +59,14 @@ Phases, one JSON line each (k2 one per shape):
                   card and on the CPU; the losses must agree.
 7. bst_train    — 50 BST Trainer steps at full width with flash attention,
                   then ``evaluate`` on 20 held-out batches; the K1 and K2
-                  launch counts must be exact (the fused backward only).
+                  launch counts must be exact (the fused forward and
+                  backward only).
                   Then the same 50 steps with the plain attention from the
                   same init: the per-step losses must agree.
 8. bst_long     — 5 BST Trainer steps at history 1,000, batch 128, with
-                  flash attention (exact launch counts: the long route's
-                  dK/dV and dQ kernels only), then with plain attention
+                  flash attention (exact launch counts: the long forward
+                  and the long backward's dK/dV and dQ kernels only), then
+                  with plain attention
                   from the same init: the losses must agree.
 9. bst_card_cpu — a small BST for 3 steps from one init on the card (K2)
                   and on the CPU (its plain version); the losses must agree.
@@ -72,13 +78,21 @@ and as the last line ``{"ok": true, "device": {...}}``.
 
 profiles the BST step instead (``profile_bst``: synced and unsynced step
 times, then ``torch.profiler`` over 10 steps), in a process of its own: a
-profiler run slows every later launch of the process. Any failed check
-raises, so the script exits non-zero without that line. It exits non-zero
-at once where no CUDA device is available.
+profiler run slows every later launch of the process.
+
+    python3 chip_smoke.py --fwd-occupancy
+
+times K2's forward as built against the same source with its register
+limits at 1 (``fwd_occupancy``), each at the k2 shape its limit governs.
+
+Any failed check raises, so the script exits non-zero without the last
+line. It exits non-zero at once where no CUDA device is available.
 """
 from __future__ import annotations
 
 import copy
+import ctypes
+import functools
 import json
 import math
 import statistics
@@ -335,6 +349,24 @@ def k2_valid(history: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(valid.astype(np.float32)).to(device)
 
 
+def k2_shapes(device, bst_train: dict) -> dict:
+    """Phase k2's shapes, key: (case name, valid, head dim, the route of the
+    forward and of the backward). H is 4 at each."""
+    def history_valid(max_len, batch):
+        gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=max_len, seed=SEED)
+        return k2_valid(gen.sample(batch, seed=1)["pos_his_item"], device)
+
+    r5_valid = history_valid(1000, 128)
+    return {
+        "bst": ("bst_b1024_L101_Dh9", k2_valid(bst_train["pos_his_item"][:BST_BATCH], device),
+                9, "fused"),
+        "l128": ("b256_L128_Dh9", history_valid(127, 256), 9, "fused"),
+        "l129": ("b256_L129_Dh9", history_valid(128, 256), 9, "long"),
+        "r5_dh9": ("probe_b128_L1001_Dh9", r5_valid, 9, "long"),
+        "r5_dh64": ("probe_b128_L1001_Dh64", r5_valid, 64, "long"),
+    }
+
+
 def k2_work(valid: torch.Tensor, heads: int, head_dim: int) -> dict:
     """What K2's function needs at this shape and mask: the (query, key)
     pairs the segment mask keeps (per head, summed), the bytes of one f32
@@ -348,12 +380,15 @@ def k2_work(valid: torch.Tensor, heads: int, head_dim: int) -> dict:
 def k2_bounds(w: dict, head_dim: int) -> dict:
     """Each K2 kernel's least time on the card (ms) and what sets it: each
     input read once and each output written once at HBM_BYTES_PER_S, against
-    the products the kept pairs need at the rate of the kernel's arithmetic
-    (the forward's f32 FMAs; the backward's TF32 tensor-core products, three
-    per f32 product)."""
+    the products the kept pairs need at the rate of the kernels' arithmetic
+    (TF32 tensor-core products, three per f32 product). ``fwd_f32_fma``
+    prices the forward as the kernel before the tensor cores ran it: f32
+    FMAs, one product per f32 product."""
     pd = w["pairs"] * head_dim
+    fwd_bytes = 4 * w["tensor"] + w["rows"] + w["seg"]
     work = {  # bytes, FLOPs, rate
-        "fwd": (4 * w["tensor"] + w["rows"] + w["seg"], 4 * pd, F32_FLOPS),
+        "fwd": (fwd_bytes, 3 * 4 * pd, TF32_FLOPS),
+        "fwd_f32_fma": (fwd_bytes, 4 * pd, F32_FLOPS),
         "bwd": (8 * w["tensor"] + w["rows"] + w["seg"], 3 * 10 * pd, TF32_FLOPS),
         "bwd_dkv": (6 * w["tensor"] + 2 * w["rows"] + w["seg"], 3 * 8 * pd, TF32_FLOPS),
         "bwd_dq": (5 * w["tensor"] + 2 * w["rows"] + w["seg"], 3 * 6 * pd, TF32_FLOPS),
@@ -376,13 +411,15 @@ def sdpa_backend(q, k, v, mask) -> str:
 
 
 def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) -> dict:
-    """K2 against flash_mha_ref at [B, L, heads, head_dim] with ``valid``; the
-    backward alone on the route ``bwd_route`` picks; SDPA as the yardstick."""
+    """K2 against flash_mha_ref at [B, L, heads, head_dim] with ``valid``;
+    each kernel alone on the routes ``fwd_route`` and ``bwd_route`` pick;
+    SDPA as the yardstick."""
     B, L = valid.shape
     g = torch.Generator(device=device).manual_seed(SEED)
     q, k, v, cot = (torch.randn((B, L, heads, head_dim), generator=g, device=device)
                     for _ in range(4))
     qkv = [t.requires_grad_() for t in (q, k, v)]
+    fwd_route = fa.fwd_route(L, heads, head_dim)
     route = fa.bwd_route(L, heads, head_dim)
 
     def fwd_bwd(fn):
@@ -403,28 +440,39 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
         plain_fwd_ms = cuda_ms(lambda: fa.flash_mha_ref(q, k, v, valid))
     fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha))
     plain_fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha_ref))
-    # the backward as autograd runs it, then each of its kernels alone
+    # the backward as autograd runs it, then each kernel alone
     o = fa.flash_mha(*qkv, valid)
     saved = o.grad_fn.saved_tensors
     sq, sk, sv, seg, out, lse = saved
     bwd_ms = cuda_ms(lambda: fa._backward(*saved, cot))
-    _, fused_fn, dkv_fn, dq_fn = fa._kernel_fns()
-    dq_, dk_, dv_ = (torch.empty_like(q) for _ in range(3))
+    fns = fa._kernel_fns()
+    dq_, dk_, dv_, o_ = (torch.empty_like(q) for _ in range(4))
+    lse_ = torch.empty_like(lse)
     dims = (B, L, heads, head_dim, 1.0 / head_dim ** 0.5)
-    kernel_ms = {}
+    fwd_ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, o_, lse_)]
+    kernel_ms = {"fwd": cuda_ms(lambda: fa._launch(
+        "forward", fns[f"fwd_{fwd_route}"], device, *fwd_ptrs, *dims))}
+    long_route = {}  # where the fused forward runs: the long one on the same inputs
+    if fwd_route == "fused":
+        long_route["ms"] = cuda_ms(lambda: fa._launch(
+            "long forward", fns["fwd_long"], device, *fwd_ptrs, *dims))
+        long_route["rel_err"] = float((o_ - want[0]).abs().max()) / scale["o"]
+        check(long_route["rel_err"] <= K2_FWD_REL_TOL,
+              f"K2 {name}: the long forward off by {long_route['rel_err']} of max|plain|")
     if route == "fused":
         ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, out, cot, lse, dq_, dk_, dv_)]
-        kernel_ms["bwd"] = cuda_ms(lambda: fa._launch("fused backward", fused_fn, device, *ptrs, *dims))
+        kernel_ms["bwd"] = cuda_ms(lambda: fa._launch(
+            "fused backward", fns["bwd_fused"], device, *ptrs, *dims))
     else:
         di = (cot * out).sum(-1).transpose(1, 2).contiguous()
         common = [t.data_ptr() for t in (sq, sk, sv, seg, cot, lse, di)]
         kernel_ms["bwd_dkv"] = cuda_ms(lambda: fa._launch(
-            "dK/dV", dkv_fn, device, *common, dk_.data_ptr(), dv_.data_ptr(), *dims))
+            "dK/dV", fns["bwd_dkv"], device, *common, dk_.data_ptr(), dv_.data_ptr(), *dims))
         kernel_ms["bwd_dq"] = cuda_ms(lambda: fa._launch(
-            "dQ", dq_fn, device, *common, dq_.data_ptr(), *dims))
+            "dQ", fns["bwd_dq"], device, *common, dq_.data_ptr(), *dims))
     o_ref = fa.flash_mha_ref(*qkv, valid)
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_ref, qkv, cot, retain_graph=True))
-    del o, o_ref, saved, sq, sk, sv, seg, out, lse
+    del o, o_ref, saved, sq, sk, sv, seg, out, lse, o_, lse_
 
     # the yardstick: one scaled_dot_product_attention call, [B, H, L, Dh] with
     # the segment-equality mask (True = may attend)
@@ -443,22 +491,22 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
     del lib_o, lib_qkv, mask
 
     bounds = k2_bounds(k2_work(valid, heads, head_dim), head_dim)
-    emit("k2", case=name, shape=[B, L, heads, head_dim], route=route,
+    emit("k2", case=name, shape=[B, L, heads, head_dim], fwd_route=fwd_route, route=route,
          valid_share=float(valid.mean()), max_abs_err=abs_err, max_rel_err=rel_err,
          tolerance=f"|err| <= tol * max(1, max|plain|), tol {tol}",
          bitwise_repeatable=bitwise, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
          fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms,
-         bwd_ms=bwd_ms, kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms,
-         library_backend=backend, library_fwd_rel_err=lib_err,
+         bwd_ms=bwd_ms, kernel_ms=kernel_ms, fwd_long_route=long_route,
+         plain_bwd_ms=plain_bwd_ms, library_backend=backend, library_fwd_rel_err=lib_err,
          library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms,
          library_fwd_bwd_ms=library_fwd_bwd_ms,
-         bounds=bounds, share_of_bound={
-             "fwd": bounds["fwd"]["bound_ms"] / fwd_ms,
-             **{kn: bounds[kn]["bound_ms"] / t for kn, t in kernel_ms.items()}})
+         bounds=bounds,
+         share_of_bound={kn: bounds[kn]["bound_ms"] / t for kn, t in kernel_ms.items()})
     for n in names:
         check(rel_err[n] <= tol[n], f"K2 {name}: {n} off by {rel_err[n]} of max|plain|")
     check(bitwise, f"K2 {name}: two launches differ")
-    return dict(abs_err=abs_err, route=route, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+    return dict(abs_err=abs_err, fwd_route=fwd_route, route=route, fwd_ms=fwd_ms,
+                plain_fwd_ms=plain_fwd_ms,
                 kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms, bounds=bounds,
                 library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms)
 
@@ -548,7 +596,7 @@ def bst_data() -> tuple[dict, dict]:
             strip(gen.sample(EVAL_BATCHES * BST_BATCH, seed=2)))
 
 
-K2_COUNTERS = ("fwd", "bwd", "bwd_dkv", "bwd_dq")
+K2_COUNTERS = ("fwd", "fwd_fused", "fwd_long", "bwd", "bwd_dkv", "bwd_dq")
 
 
 def k2_counts() -> dict:
@@ -607,8 +655,10 @@ def phase_bst_train(device, train, test) -> dict:
     )
     path_diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
     auc_diff = abs(ev["eval_auc_exact"] - plain_ev["eval_auc_exact"])
-    # L 101 takes the fused backward: one launch per block and step, no long-route launch
-    want = dict(k1=4 * STEPS, fwd=2 * (STEPS + EVAL_BATCHES), bwd=2 * STEPS, bwd_dkv=0, bwd_dq=0)
+    # L 101 takes the fused routes: one launch per block and step, no long-route launch
+    fwd = 2 * (STEPS + EVAL_BATCHES)
+    want = dict(k1=4 * STEPS, fwd=fwd, fwd_fused=fwd, fwd_long=0, bwd=2 * STEPS, bwd_dkv=0,
+                bwd_dq=0)
     emit("bst_train", steps=state.step, batch=BST_BATCH, item_vocab=BST_ITEMS,
          cat_vocab=BST_CATS, history=BST_T, table_dtype="float32", attention="flash (K2)",
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
@@ -664,8 +714,8 @@ def phase_bst_long(device) -> dict:
     diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
     step_ms = np.diff([t for t, _ in flash]) * 1e3
     plain_step_ms = np.diff([t for t, _ in plain]) * 1e3
-    want = dict(k1=4 * BST_LONG_STEPS, fwd=2 * BST_LONG_STEPS, bwd=0,
-                bwd_dkv=2 * BST_LONG_STEPS, bwd_dq=2 * BST_LONG_STEPS)
+    n = 2 * BST_LONG_STEPS
+    want = dict(k1=4 * BST_LONG_STEPS, fwd=n, fwd_fused=0, fwd_long=n, bwd=0, bwd_dkv=n, bwd_dq=n)
     emit("bst_long", steps=BST_LONG_STEPS, batch=BST_LONG_BATCH, history=BST_LONG_T,
          losses=losses, plain_attention_losses=plain_losses, flash_vs_plain_max_loss_diff=diff,
          tolerance=BST_PATHS_LOSS_TOL, ms_per_step_median=float(np.median(step_ms)),
@@ -705,14 +755,14 @@ def phase_bst_card_cpu(device):
     emit("bst_card_cpu", card_losses=card, cpu_losses=cpu, max_abs_diff=diff,
          tolerance=CARD_CPU_LOSS_TOL, k2_launches_on_card=launched)
     check(len(card) == len(cpu) == 3, "BST card/CPU step count")
-    want = dict(fwd=3, bwd=3, bwd_dkv=0, bwd_dq=0)  # L 21: the fused backward
+    want = dict(fwd=3, fwd_fused=3, fwd_long=0, bwd=3, bwd_dkv=0, bwd_dq=0)  # L 21: fused routes
     check(launched == want, f"card run launched K2 {launched}, wanted {want}")
     check(diff <= CARD_CPU_LOSS_TOL, f"BST card vs CPU losses differ by {diff}")
 
 
 # kernel-name fragments for the profile's parts, matched in this order
 PROFILE_PARTS = (
-    ("k2_fwd", ("flash_fwd_kernel",)),
+    ("k2_fwd", ("flash_fwd_",)),
     ("k2_bwd", ("flash_bwd_",)),
     ("k1", ("chunk_sum_kernel", "join_kernel")),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90_", "sm80_")),
@@ -777,14 +827,70 @@ def profile_bst(device, steps: int = 10) -> dict:
                 top_kernels_ms_per_step={n: t / steps / 1e3 for n, t in top})
 
 
+# The forward's register limits (csrc/flash_attention.cu), each with its
+# entry and the phase k2 shape of a main path that the limit governs
+FWD_OCCUPANCY = (
+    ("RTT_FWD_LONG_MIN_BLOCKS_NARROW", "fwd_long", "r5_dh9"),
+    ("RTT_FWD_LONG_MIN_BLOCKS_WIDE", "fwd_long", "r5_dh64"),
+)
+
+
+def fwd_occupancy(device, rounds: int = 6) -> dict:
+    """The forward as shipped against the same source built with each
+    register limit at 1 (the compiler's own choice): each entry alone at the
+    shape its limit governs, the two builds alternated over ``rounds``
+    (CUDA events, median of 25 a round); both held to ``flash_mha_ref``."""
+    variants = {"shipped": (), "min_blocks_1": tuple(f"-D{m}=1" for m, _, _ in FWD_OCCUPANCY)}
+    with ThreadPoolExecutor(len(variants)) as pool:
+        sos = dict(zip(variants, pool.map(lambda d: _build.build("flash_attention", d),
+                                          variants.values())))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = {}
+    for variant, so in sos.items():
+        lib = ctypes.CDLL(str(so))
+        for entry in {e for _, e, _ in FWD_OCCUPANCY}:
+            fn = getattr(lib, f"rtt_flash_attention_{entry}")
+            fn.argtypes, fn.restype = [vp] * 6 + [i32, i32, i32, i32, f32, vp], i32
+            fns[variant, entry] = fn
+    shapes = k2_shapes(device, bst_data()[0])
+    out = {}
+    for macro, entry, key in FWD_OCCUPANCY:
+        case, valid, head_dim, _ = shapes[key]
+        B, L = valid.shape
+        g = torch.Generator(device=device).manual_seed(SEED)
+        q, k, v = (torch.randn((B, L, 4, head_dim), generator=g, device=device) for _ in range(3))
+        seg = valid.to(torch.int32)
+        want = fa.flash_mha_ref(q, k, v, valid)
+        dims = (B, L, 4, head_dim, 1.0 / head_dim ** 0.5)
+        launches, errs, times = {}, {}, {variant: [] for variant in variants}
+        outs = {}  # each build's o and lse, alive while it is timed
+        for variant in variants:
+            o, lse = outs[variant] = torch.empty_like(q), torch.empty((B, 4, L), device=device)
+            ptrs = [t.data_ptr() for t in (q, k, v, seg, o, lse)]
+            launches[variant] = functools.partial(
+                fa._launch, entry, fns[variant, entry], device, *ptrs, *dims)
+            launches[variant]()
+            errs[variant] = float((o - want).abs().max()) / max(1.0, float(want.abs().max()))
+            check(errs[variant] <= K2_FWD_REL_TOL, f"{variant} {entry} at {case}: off by {errs[variant]}")
+        for r in range(rounds):
+            for variant in (variants if r % 2 == 0 else reversed(list(variants))):
+                times[variant].append(cuda_ms(launches[variant]))
+        out[macro] = dict(entry=entry, case=case, shape=[B, L, 4, head_dim], max_rel_err=errs,
+                          ms=times, median_ms={n: statistics.median(t) for n, t in times.items()})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    if sys.argv[1:] == ["--profile-bst"]:
+    if sys.argv[1:] in (["--profile-bst"], ["--fwd-occupancy"]):
         smi = phase_device()
-        emit("profile_bst", **profile_bst(device))
+        if sys.argv[1] == "--profile-bst":
+            emit("profile_bst", **profile_bst(device))
+        else:
+            emit("fwd_occupancy", **fwd_occupancy(device))
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -793,29 +899,18 @@ def main() -> int:
         }}), flush=True)
         return 0
     if sys.argv[1:]:
-        print(f"usage: {sys.argv[0]} [--profile-bst]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--profile-bst | --fwd-occupancy]", file=sys.stderr)
         return 2
     smi = phase_device()
     phase_build()
     bst_train, bst_test = bst_data()
     k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in bst_train.items()})
-    def history_valid(max_len, batch):
-        gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=max_len, seed=SEED)
-        return k2_valid(gen.sample(batch, seed=1)["pos_his_item"], device)
-
-    r5_valid = history_valid(1000, 128)
-    k2_cases = {  # key: (case name, valid, head dim, backward route)
-        "bst": ("bst_b1024_L101_Dh9", k2_valid(bst_train["pos_his_item"][:BST_BATCH], device),
-                9, "fused"),
-        "l128": ("b256_L128_Dh9", history_valid(127, 256), 9, "fused"),
-        "l129": ("b256_L129_Dh9", history_valid(128, 256), 9, "long"),
-        "r5_dh9": ("probe_b128_L1001_Dh9", r5_valid, 9, "long"),
-        "r5_dh64": ("probe_b128_L1001_Dh64", r5_valid, 64, "long"),
-    }
+    k2_cases = k2_shapes(device, bst_train)
     k2 = {}
     for key, (case, valid, head_dim, route) in k2_cases.items():
         k2[key] = phase_k2(device, case, valid, 4, head_dim)
-        check(k2[key]["route"] == route, f"K2 {case} took the {k2[key]['route']} route")
+        took = (k2[key]["fwd_route"], k2[key]["route"])
+        check(took == (route, route), f"K2 {case} took the {took} routes")
     dlrm_k1 = phase_train(device)
     phase_card_cpu(device)
     bst_launches = phase_bst_train(device, bst_train, bst_test)
@@ -841,34 +936,36 @@ def main() -> int:
         "bst_item_history_ms": k1["bst_item_history_f32_order"]["ms"],
         "bst_item_history_plain_ms": k1["bst_item_history_f32_order"]["plain_ms"],
     }]
-    # each K2 kernel at the shape of its main path: the forward and the fused
-    # backward at BST's, the long route's two at the BST run with history 1,000
-    errs = {"fwd": ("o",), "bwd": ("dq", "dk", "dv"), "bwd_dkv": ("dk", "dv"), "bwd_dq": ("dq",)}
-    for key, case, source, launches in (
-        ("fwd", "bst", K2_SOURCE, bst_launches["fwd"] + long_launches["fwd"]),
-        ("bwd", "bst", K2_BWD_SOURCE, bst_launches["bwd"]),
-        ("bwd_dkv", "r5_dh9", K2_BWD_SOURCE, long_launches["bwd_dkv"]),
-        ("bwd_dq", "r5_dh9", K2_BWD_SOURCE, long_launches["bwd_dq"]),
+    # each K2 kernel at the shape of its main path: the fused forward and
+    # backward at BST's, the long routes' at the BST run with history 1,000
+    for name, kernel, route_key, route, case, errs in (
+        ("fwd_fused", "fwd", "fwd_route", "fused", "bst", ("o",)),
+        ("fwd_long", "fwd", "fwd_route", "long", "r5_dh9", ("o",)),
+        ("bwd", "bwd", "route", "fused", "bst", ("dq", "dk", "dv")),
+        ("bwd_dkv", "bwd_dkv", "route", "long", "r5_dh9", ("dk", "dv")),
+        ("bwd_dq", "bwd_dq", "route", "long", "r5_dh9", ("dq",)),
     ):
         r = k2[case]
-        same_route = [x for x in k2.values() if key == "fwd" or
-                      (x["route"] == "fused") == (key == "bwd")]
+        fwd = kernel == "fwd"
+        same_route = [x for x in k2.values() if x[route_key] == route]
         kernels.append({
-            "name": f"flash_attention_{key}",
+            "name": f"flash_attention_{name}",
             "route": "cuda",
-            "source": source,
+            "source": K2_SOURCE if fwd else K2_BWD_SOURCE,
             "replaces": K2_REPLACES,
-            "tpu_kernel": K2_TPU_KERNELS[key],
-            "launches": launches,
-            "max_abs_err": max(x["abs_err"][n] for x in same_route for n in errs[key]),
+            "tpu_kernel": K2_TPU_KERNELS[kernel],
+            "launches": bst_launches[name] + long_launches[name],
+            "max_abs_err": max(x["abs_err"][n] for x in same_route for n in errs),
             "shape": k2_cases[case][0],
-            "ms": r["fwd_ms"] if key == "fwd" else r["kernel_ms"][key],
+            # the forward through flash_mha, the backward's kernels alone
+            "ms": r["fwd_ms"] if fwd else r["kernel_ms"][kernel],
+            "kernel_ms": r["kernel_ms"][kernel],  # the kernel alone
             # the plain forward; for the backward kernels the whole plain backward
-            "plain_ms": r["plain_fwd_ms"] if key == "fwd" else r["plain_bwd_ms"],
-            "bound_ms": r["bounds"][key]["bound_ms"],
-            "bound_by": r["bounds"][key]["bound_by"],
+            "plain_ms": r["plain_fwd_ms"] if fwd else r["plain_bwd_ms"],
+            "bound_ms": r["bounds"][kernel]["bound_ms"],
+            "bound_by": r["bounds"][kernel]["bound_by"],
             # scaled_dot_product_attention's forward; its whole backward for the others
-            "library_ms": r["library_fwd_ms"] if key == "fwd" else r["library_bwd_ms"],
+            "library_ms": r["library_fwd_ms"] if fwd else r["library_bwd_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels from this checkout's sources, at first use.
 
-Each kernel is one ``ops/csrc/<name>.cu`` file with a plain C interface.
-``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library under
+Each kernel is one ``ops/csrc/<name>.cu`` file with a plain C interface,
+which may include the headers beside it (``csrc/*.cuh``). ``nvcc`` compiles
+it for Hopper (``sm_90a``) into a shared library under
 ``build/recommender_tpu_torch/`` at the repository root, named by a hash of
-the source and the flags, and ``ctypes`` loads it. A source edit therefore
-builds a new library; an unchanged one is reused. Nothing is built on
+the source, every header and the flags, and ``ctypes`` loads it. An edit
+of the source or of a header therefore builds a new library; an unchanged
+one is reused. Nothing is built on
 import: the CPU tests import every module on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -37,20 +39,24 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    so = library_path(name)
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    ``defines`` (``"-DNAME=value"``) build a variant of it under a name of
+    its own; ``load`` takes only the source as it is."""
+    so = library_path(name, defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -1,211 +1,448 @@
-// Flash attention forward with a segment-id mask, for small head dims (Dh <= 64).
+// Flash attention forward with a segment-id mask, for head dims up to 64,
+// on the tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernel that recommender_tpu/nn/transformer.py::_flash_mha
 // reaches through jax.experimental.pallas.ops.tpu.flash_attention:
 // _flash_attention_impl (jax 0.9.0, flash_attention.py:589), the forward,
-// which saves the row log-sum-exp for the backward. The backward is
-// flash_attention_bwd.cu. It computes the same function on every row the TPU
-// kernel defines,
+// which saves the row log-sum-exp for the backward (flash_attention_bwd.cu).
+// It computes the same function on every row the TPU kernel defines,
 //
 //     o[b, i, h, :] = sum_j softmax_j(scale * q[b,i,h,:] . k[b,j,h,:]) v[b,j,h,:]
 //
-// over the keys j with seg[b, j] == seg[b, i] (SegmentIds(seg, seg)). Every
-// row sees itself, so no row is fully masked. Unlike the TPU wrapper it pads
-// neither L to a 128-row block nor Dh to 128 lanes: the ragged edges are
-// masked here, so `scale` is 1/sqrt(real Dh) and no inert padding position
-// takes part.
+// over the keys j with seg[b, j] == seg[b, i] (SegmentIds(seg, seg)), and
+// lse[b, h, i], the natural log of the softmax's denominator. Every row sees
+// itself, so no row is fully masked. Unlike the TPU wrapper it pads neither
+// L to a 128-row block nor Dh to 128 lanes: the ragged edges are masked
+// here, so `scale` is 1/sqrt(real Dh) and no inert padding position takes
+// part.
 //
-// Layout: q, k, v, o are f32 [B, L, H, Dh] (heads-last, contiguous); seg is
-// int32 [B, L]; lse is f32 [B, H, L].
+// Layout: q, k, v, o f32 [B, L, H, Dh] (heads-last, contiguous); seg int32
+// [B, L]; lse f32 [B, H, L].
 //
-// What bounds it on the card: at BST's shape (B 1024, L 101, H 4, Dh 9)
-// q, k, v and o are about 60 MB together and the forward is only ~0.75
-// GFLOP, so neither bytes nor FLOPs set its time: the per-thread FMA loop
-// over shared-memory rows and its latency do. Measured on an H100 80GB HBM3
-// (700 W limit): 0.25 ms, i.e. ~240 GB/s of the 3.35 TB/s.
+// Two routes; ops/flash_attention.py::fwd_route picks one from (L, H, Dh):
+// * fused (L <= 128 and fwd_smem_bytes(L, H, Dh) <= 227 KB; BST's
+//   B1024 L101 H4 Dh9 takes it, 47,152 bytes a block): one block per batch
+//   row holds all heads;
+// * long (any other shape, e.g. the B128 L1001 probes): a block of 4 warps
+//   owns 64 queries of one head and streams the keys in tiles of 64.
 //
-// Design:
-// * One block per (batch, query tile of 64 rows, head); one row per thread
-//   (two threads per row for Dh > 32, each holding half of the row and
-//   combining dot products with one shuffle). The thread keeps its own row's
-//   vectors and accumulators in registers; the key rows stream through
-//   shared memory in tiles of 64, read by every thread of the block at the
-//   same address (broadcast, no bank conflicts).
-// * Dh is padded in registers and shared memory to the next supported
-//   width DPAD (8, 12, 16, 24, 32, 48, 64) with zeros, so the dot products
-//   are exact and unrolled; loads and stores are guarded by the real Dh.
-// * Tiles are loaded and results stored through shared memory, so that
-//   consecutive threads touch consecutive addresses of a row.
-// * Online softmax in base 2 (q is pre-scaled by scale * log2 e); the
-//   running max is rescaled only when a key raises it. It stores the
-//   natural-log log-sum-exp per row for the backward.
+// What bounds it on an H100 80GB HBM3 (3.35 TB/s; TF32 tensor cores 495
+// TFLOP/s, three TF32 products per f32 product, every pair the mask keeps
+// counted; chip_smoke.py::k2_bounds):
+// * BST: q, k, v, o, lse, seg 62 MB -> 18 us; ~3 GFLOP -> 6 us. Bytes.
+// * B128 L1001 H4 Dh64: 0.53 GB -> 0.16 ms; 2.7e11 FLOP -> 0.54 ms.
+//   Operations. At Dh 9 the same pairs: 0.08 ms of operations.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md): at
+// BST 0.10 ms a launch on the device (chip_smoke.py --profile-bst; the
+// earlier kernel 0.16 ms) and 0.12-0.14 ms alone by CUDA events (chip_smoke.py
+// phase k2, where L1001 takes 0.86-0.89 ms at Dh9 and 2.25-2.29 ms at Dh64):
+// 13-15% of the bound at BST, 9% and 24% at L1001. What holds it back: each
+// 16 x 8 tile is a dependent chain of shared loads, splits, products and
+// exp2 that the resident warps do not hide, and the fused block's copy in
+// and out, which its own products do not overlap.
 //
-// C interface for ctypes: pointers and the stream as void*; the entry
-// returns cudaGetLastError() after its launch.
+// What the design does about what held the earlier kernel (one query row per
+// thread, FMA loops over shared rows) back:
+// 1. Its inner loop was bound by shared-memory loads and two DPAD-long FMA
+//    chains per key on the CUDA cores. Here S = Q K^T and O += P V are a
+//    warp's mma.sync m16n8k8 on the TF32 tensor cores, split 3xTF32
+//    (flash_mma.cuh) so the result keeps f32 accuracy where one TF32 product
+//    keeps ~3 digits. A warp owns 16 query rows and keeps them, times scale
+//    log2 e, as A fragments in registers; K and V rows are read from shared
+//    memory once per 16 x 8 tile, through a base pointer of the lane and
+//    constant offsets, with no bound check: the rows past L that a tile
+//    reaches are zeros. Dh is padded to DP, a multiple of 8, in registers
+//    only; where Dh % 8 is 1..4 (BST's 9) the last 8 columns of S take a
+//    k = 4 product. P goes from S's accumulators straight into the A operand
+//    of P V (acc_as_a), without shuffles.
+// 2. It branched per key on the mask and on a rising max. Here the softmax
+//    runs on the accumulator fragments a block of keys at a time: S of 8
+//    tiles (64 keys), the block's row max over the four lanes of a quad, one
+//    rescale of O and the row sum where the max rose, then P = 2^(S - m) by
+//    one ex2.approx each. The mask of a block is taken once as bits (which
+//    pairs of the lane, which tiles of the warp; the fused route takes it
+//    once for all heads), and a 16 x 8 tile without a visible pair is
+//    skipped. Holding a whole row of S (L <= 128) for an exact max first was
+//    no faster than the online form (PERF.md).
+// 3. Its blocks were (batch row, 64-query tile, head): at L 101 the second
+//    tile was 37/64 full, and each head's block re-read the same rows. The
+//    fused block holds one batch row: a warp per 16 queries (7 at L 101)
+//    that walks the heads, so rows are padded to 112, not 128, and every
+//    byte is read from device memory once.
+// 4. Its loads were scalar, with a divide per element, into one buffer. The
+//    fused block copies the q, k and v [L, H, Dh] spans of its batch row as
+//    contiguous runs of 16-byte cp.async copies (4-byte where a span is not
+//    16-byte aligned), assembles o in place of q and lse [H, L] in shared
+//    memory, and writes both back as contiguous spans (16-byte stores where
+//    aligned). The long route double-buffers its K and V tiles with
+//    cp.async (16 bytes a copy where Dh % 4 == 0; no index divided by Dh),
+//    so the next tile's copy runs under this one's products.
+// Each output element is written once, by one thread, with no atomics: every
+// launch is bitwise deterministic.
+//
+// C interface for ctypes: pointers and the stream as void*; each entry
+// returns cudaGetLastError() after its launch (cudaErrorInvalidValue for a
+// shape its route does not take).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // rows per block and rows per shared-memory tile
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kBlockTiles = 8;  // 16 x 8 tiles of S per softmax block
+constexpr int kBlockKeys = 8 * kBlockTiles;
+static_assert(kBlockTiles <= 8, "a Mask holds 4 bits for each of at most 8 tiles");
+// Blocks per SM the long kernel asks registers for: five at DP <= 16
+// (<= 102 registers; L1001 Dh9) and three above (<= 168; Dh64), each
+// 3-6% faster than the compiler's own choice there (PERF.md). Each is set
+// at compile time so that `chip_smoke.py --fwd-occupancy` can time it
+// against 1. The fused kernel takes the compiler's choice: three blocks an
+// SM were no faster at BST's shape.
+#ifndef RTT_FWD_LONG_MIN_BLOCKS_NARROW
+#define RTT_FWD_LONG_MIN_BLOCKS_NARROW 5
+#endif
+#ifndef RTT_FWD_LONG_MIN_BLOCKS_WIDE
+#define RTT_FWD_LONG_MIN_BLOCKS_WIDE 3
+#endif
+constexpr int kLongMinBlocksNarrow = RTT_FWD_LONG_MIN_BLOCKS_NARROW;
+constexpr int kLongMinBlocksWide = RTT_FWD_LONG_MIN_BLOCKS_WIDE;
 
-// DT dims per thread, TPR threads per row: DPAD = DT * TPR. Each thread's
-// chunk of a shared row is CS floats apart, one more than DT when TPR > 1,
-// so the two chunks of a row sit in different banks.
-template <int DT, int TPR>
-struct Cfg {
-  static constexpr int kDpad = DT * TPR;
-  static constexpr int kCs = TPR > 1 ? DT + 1 : DT;
-  static constexpr int kRs = kCs * TPR;
-  static constexpr int kThreads = kRows * TPR;
+__host__ __device__ constexpr int round8(int n) { return (n + 7) / 8 * 8; }
+
+// Floats of one tensor's [L, H, Dh] span in the fused block: L rounded up
+// to 8 rows of zeros, then fused_span's 16 zeros. The B reads of a 16 x 8
+// tile reach row round8(L) - 1 and DP - Dh <= 15 floats past its last head's
+// Dh without a bound check, and meet only these zeros.
+__host__ __device__ constexpr int fwd_span(int L, int HD) { return fused_span(round8(L) * HD); }
+
+// q, k, v spans, lse [H][L], seg [round8(L)]. Mirrored by
+// ops/flash_attention.py.
+int64_t fwd_smem_bytes(int L, int H, int Dh) {
+  return 4 * (3LL * fwd_span(L, H * Dh) + (int64_t)H * L + round8(L));
+}
+
+// 2^x: one MUFU.EX2. Results below 2^-126 flush to 0; they are below any
+// row sum's rounding (a row's largest term is 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The 16 query rows a warp owns, of one head: Q times scale log2 e as A
+// fragments, the rows' seg and liveness, and the online softmax of the
+// lane's rows g and g + 8: the running max of the base-2 scores, the lane's
+// share of the row sum (its columns 2t, 2t + 1 of every tile; the quad adds
+// its four shares at the end) and O, not yet divided by the sum.
+template <int DP>
+struct Query {
+  ARows<DP <= 32> q[DP / 8];
+  int seg[2];
+  bool ok[2];
+  float m[2], l[2];
+  Acc<DP> o;
+
+  __device__ __forceinline__ void load(const View& qv, const int* segs, int r0, int n,
+                                       float c2, Lane ln) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) q[kk].set(qv, r0, 8 * kk, ln, c2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + ln.g + 8 * r;
+      ok[r] = row < n;
+      seg[r] = ok[r] ? segs[row] : 0;
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+    }
+    zero<DP>(o);
+  }
+
+  // O / l into dst[row * stride + col] and the natural-log lse into
+  // lse_dst[row], for rows < n and columns < Dh (rows r0 .. r0 + 15).
+  __device__ __forceinline__ void store(float* dst, int stride, float* lse_dst, int r0, int n,
+                                        int Dh, Lane ln) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];  // rows past n have nothing to store; their l may be 0
+      const int row = r0 + ln.g + 8 * r;
+      if (ln.t == 0 && row < n) lse_dst[row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+#pragma unroll
+    for (int nn = 0; nn < DP / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + ln.g + 8 * (e >> 1), col = 8 * nn + 2 * ln.t + (e & 1);
+        if (row < n && col < Dh) dst[row * stride + col] = o[nn][e] * inv[e >> 1];
+      }
+  }
 };
 
-// Rows [row0, row0 + kRows) of one (b, h) slice of a [B, L, H, Dh] tensor
-// into dst[kRows][kRs]; zeros past L and past Dh.
-template <int DT, int TPR>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ x,
-                                          int64_t base, int row0, int L,
-                                          int64_t rstride, int Dh, int tid) {
-  using C = Cfg<DT, TPR>;
-  for (int e = tid; e < kRows * C::kDpad; e += C::kThreads) {
-    const int r = e / C::kDpad, d = e - r * C::kDpad;
-    const int row = row0 + r;
-    float val = 0.f;
-    if (row < L && d < Dh) val = x[base + (int64_t)row * rstride + d];
-    dst[r * C::kRs + (d / DT) * C::kCs + d % DT] = val;
-  }
-}
-
-template <int DT, int TPR>
-__device__ __forceinline__ void store_tile(float* __restrict__ x, const float* src,
-                                           int64_t base, int row0, int L,
-                                           int64_t rstride, int Dh, int tid) {
-  using C = Cfg<DT, TPR>;
-  for (int e = tid; e < kRows * C::kDpad; e += C::kThreads) {
-    const int r = e / C::kDpad, d = e - r * C::kDpad;
-    const int row = row0 + r;
-    if (row < L && d < Dh)
-      x[base + (int64_t)row * rstride + d] = src[r * C::kRs + (d / DT) * C::kCs + d % DT];
-  }
-}
-
-// Per-row vectors of a [B, H, L] tensor (or seg [B, L]) into shared memory.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ x,
-                                          int64_t base, int row0, int L,
-                                          T fill, T mul, int tid) {
-  if (tid < kRows) dst[tid] = row0 + tid < L ? x[base + row0 + tid] * mul : fill;
-}
-
-// Dot product of this thread's DT registers with its chunk of a shared row;
-// the TPR threads of a row add their halves. Every lane of the warp calls
-// it (the loops around it are uniform across the block).
-template <int DT, int TPR>
-__device__ __forceinline__ float dot(const float (&a)[DT], const float* row) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) s = fmaf(a[d], row[d], s);
-  if (TPR > 1) s += __shfl_xor_sync(0xffffffffu, s, 1);
-  return s;
-}
-
-template <int DT, int TPR>
-__device__ __forceinline__ void row_to_regs(float (&dst)[DT], const float* tile,
-                                            int r, int c, float mul) {
-  using C = Cfg<DT, TPR>;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) dst[d] = tile[r * C::kRs + c * C::kCs + d] * mul;
-}
-
-template <int DT, int TPR>
-__device__ __forceinline__ void regs_to_row(float* tile, const float (&src)[DT],
-                                            int r, int c, float mul) {
-  using C = Cfg<DT, TPR>;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) tile[r * C::kRs + c * C::kCs + d] = src[d] * mul;
-}
-
-// blockIdx.x = (b * tiles + tile) * H + h: the H heads of one tile of one
-// batch row run side by side and share the rows' cache lines.
-struct Where {
-  int b, h, row0;
-  int64_t base;  // offset of (b, 0, h, 0) in a [B, L, H, Dh] tensor
+// The segment mask over one softmax block of keys [k0, k0 + kBlockKeys):
+// bit 4 jt + e of `on` is set where the lane's accumulator entry e of tile
+// jt (rows g, g + 8 by columns 2t, 2t + 1) is a visible pair; bit jt of
+// `live`, the same in every lane, where tile jt holds any. seg is read at
+// every key below round8(n): the caller pads it.
+struct Mask {
+  uint32_t on, live;
 };
 
-__device__ __forceinline__ Where where(int L, int H, int Dh) {
-  const int tiles = (L + kRows - 1) / kRows;
-  int blk = blockIdx.x;
-  Where w;
-  w.h = blk % H;
-  blk /= H;
-  w.row0 = (blk % tiles) * kRows;
-  w.b = blk / tiles;
-  w.base = (int64_t)w.b * L * H * Dh + (int64_t)w.h * Dh;
-  return w;
+template <int DP>
+__device__ __forceinline__ Mask block_mask(const Query<DP>& w, const int* seg, int n, int k0,
+                                           Lane ln) {
+  Mask mk{0u, 0u};
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
+    const int j0 = k0 + 8 * jt;
+    if (j0 >= n) break;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = j0 + 2 * ln.t + i, kseg = seg[j];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (w.ok[r] && j < n && kseg == w.seg[r]) bits |= 1u << (2 * r + i);
+    }
+    mk.on |= bits << (4 * jt);
+    if (__any_sync(0xffffffffu, bits != 0)) mk.live |= 1u << jt;
+  }
+  return mk;
 }
 
-template <int DT, int TPR>
-__global__ void __launch_bounds__(Cfg<DT, TPR>::kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ o, float* __restrict__ lse, int L, int H,
-                 int Dh, float scale) {
-  using C = Cfg<DT, TPR>;
-  __shared__ float ks[kRows * C::kRs];
-  __shared__ float vs[kRows * C::kRs];
-  __shared__ int segs[kRows];
-  const int tid = threadIdx.x, r = tid / TPR, c = tid % TPR;
-  const Where w = where(L, H, Dh);
-  const int64_t rstride = (int64_t)H * Dh;
-  const int i = w.row0 + r;
-
-  load_tile<DT, TPR>(ks, q, w.base, w.row0, L, rstride, Dh, tid);
-  __syncthreads();
-  float qr[DT];
-  row_to_regs<DT, TPR>(qr, ks, r, c, scale * kLog2e);  // scores in base 2
-  const int qseg = i < L ? seg[(int64_t)w.b * L + i] : 0;
-  __syncthreads();
-
-  float m = -INFINITY, l = 0.f, acc[DT];
+// One softmax block of keys: S of the warp's rows against its live tiles
+// (base 2: Q carries scale log2 e); the block's row max; O and the row sum
+// rescaled once if it rose; then P = 2^(S - m) and O += P V. kp points at
+// K(k0 + g, t) of the lane's head, vp at V(k0 + 2t, g); rows are `stride`
+// floats apart, and every row below the block's last tile may be read.
+template <int DP, bool kTail4>
+__device__ __forceinline__ void attend(Query<DP>& w, const float* kp, const float* vp,
+                                       int stride, Mask mk) {
+  if (!mk.live) return;
+  float s[kBlockTiles][4];
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += kRows) {
-    load_tile<DT, TPR>(ks, k, w.base, k0, L, rstride, Dh, tid);
-    load_tile<DT, TPR>(vs, v, w.base, k0, L, rstride, Dh, tid);
-    load_rows<int>(segs, seg, (int64_t)w.b * L, k0, L, 0, 1, tid);
-    __syncthreads();
-    const int n = min(kRows, L - k0);
-    for (int j = 0; j < n; ++j) {
-      const float s = dot<DT, TPR>(qr, ks + j * C::kRs + c * C::kCs);
-      if (segs[j] == qseg) {
-        if (s > m) {  // a new row max: rescale what was summed so far
-          const float corr = exp2f(m - s);
-          l *= corr;
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
 #pragma unroll
-          for (int d = 0; d < DT; ++d) acc[d] *= corr;
-          m = s;
-        }
-        const float p = exp2f(s - m);
-        l += p;
-        const float* vr = vs + j * C::kRs + c * C::kCs;
+    for (int e = 0; e < 4; ++e) s[jt][e] = -INFINITY;
+    if (!(mk.live >> jt & 1)) continue;
+    const float* kr = kp + 8 * jt * stride;
+    Acc3 a;
 #pragma unroll
-        for (int d = 0; d < DT; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const FragB b = split_b(kr[8 * kk], kr[8 * kk + 4]);
+      if (kTail4 && kk == DP / 8 - 1)
+        a.add_k4(w.q[kk].get(), b);
+      else
+        a.add(w.q[kk].get(), b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (mk.on >> (4 * jt + e) & 1) {
+        s[jt][e] = a.sum(e);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[jt][e]);
       }
     }
-    __syncthreads();
   }
-  // rows past L have nothing to store; their l may be 0
-  regs_to_row<DT, TPR>(ks, acc, r, c, i < L ? 1.f / l : 0.f);
-  __syncthreads();
-  store_tile<DT, TPR>(o, ks, w.base, w.row0, L, rstride, Dh, tid);
-  if (c == 0 && i < L)
-    lse[((int64_t)w.b * H + w.h) * L + i] = (m + log2f(l)) * kLn2;
+  float base[2];  // the max each exponent is taken from
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    if (mx[r] > w.m[r]) {  // the first visible key, or a higher one: rescale what was summed
+      const float corr = ex2(w.m[r] - mx[r]);
+      w.l[r] *= corr;
+#pragma unroll
+      for (int nn = 0; nn < DP / 8; ++nn) {
+        w.o[nn][2 * r] *= corr;
+        w.o[nn][2 * r + 1] *= corr;
+      }
+      w.m[r] = mx[r];
+    }
+    base[r] = w.m[r] == -INFINITY ? 0.f : w.m[r];  // no visible key yet: every S is -inf
+  }
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
+    if (!(mk.live >> jt & 1)) continue;
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = ex2(s[jt][e] - base[e >> 1]);
+      w.l[e >> 1] += p[e];
+    }
+    const FragA pa = acc_as_a(p);
+    const float* vr = vp + 8 * jt * stride;
+#pragma unroll
+    for (int nn = 0; nn < DP / 8; ++nn)
+      mma3(w.o[nn], pa, split_b(vr[8 * nn], vr[stride + 8 * nn]));
+  }
 }
 
+// n floats from shared memory to device memory, 16 bytes a store where vec.
+__device__ __forceinline__ void store_span(float* __restrict__ dst, const float* src, int n,
+                                           bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < n / 4; e += blockDim.x)
+      reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(src)[e];
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+  }
+}
+
+// ------------------------------------------------------------ fused route
+// One block per batch row b, one warp per 16 queries (L rounded up to 16).
+// The warp takes the segment mask of its queries once, then walks the heads,
+// and writes each head's O over its own q rows of that head.
+template <int DP, bool kTail4>
+__global__ void __launch_bounds__(kFusedMaxL / 16 * 32)
+flash_fwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const int* __restrict__ seg,
+                       float* __restrict__ o, float* __restrict__ lse, int L, int H, int Dh,
+                       float scale, bool vec, bool vec_lse) {
+  constexpr int kBlocks = kFusedMaxL / kBlockKeys;
+  extern __shared__ float4 smem[];
+  const int HD = H * Dh, n = L * HD, n4 = fwd_span(L, HD);
+  float* qs = reinterpret_cast<float*>(smem);  // then o
+  float* ks = qs + n4;
+  float* vs = ks + n4;
+  float* lse_s = vs + n4;  // [H][L]
+  int* seg_s = reinterpret_cast<int*>(lse_s + H * L);  // [round8(L)]
+  const int b = blockIdx.x, tid = threadIdx.x, nthreads = blockDim.x;
+  const int64_t base = (int64_t)b * n;
+
+  const float* src[3] = {q + base, k + base, v + base};
+  float* to[3] = {qs, ks, vs};
+  if (vec) {
+    for (int e = tid; e < n / 4; e += nthreads)
+#pragma unroll
+      for (int m = 0; m < 3; ++m) cp_async16(to[m] + 4 * e, src[m] + 4 * e);
+  } else {
+    for (int e = tid; e < n; e += nthreads)
+#pragma unroll
+      for (int m = 0; m < 3; ++m) cp_async4(to[m] + e, src[m] + e);
+  }
+  for (int e = tid; e < L; e += nthreads) cp_async4(seg_s + e, seg + (int64_t)b * L + e);
+  cp_async_commit();
+  for (int e = n + tid; e < n4; e += nthreads)  // the rows past L, and the tail
+#pragma unroll
+    for (int m = 0; m < 3; ++m) to[m][e] = 0.f;
+  for (int e = L + tid; e < round8(L); e += nthreads) seg_s[e] = 0;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const Lane ln = lane();
+  const int r0 = 16 * (tid >> 5);
+  const float c2 = scale * kLog2e;
+  Query<DP> w;
+  w.load(View{qs, HD, L, Dh}, seg_s, r0, L, c2, ln);  // the seg of the warp's rows
+  Mask mk[kBlocks];
+#pragma unroll
+  for (int i = 0; i < kBlocks; ++i)
+    mk[i] = i * kBlockKeys < L ? block_mask(w, seg_s, L, i * kBlockKeys, ln) : Mask{0u, 0u};
+  for (int h = 0; h < H; ++h) {
+    if (h > 0) w.load(View{qs + h * Dh, HD, L, Dh}, seg_s, r0, L, c2, ln);
+    const float* kp = ks + h * Dh + ln.g * HD + ln.t;
+    const float* vp = vs + h * Dh + 2 * ln.t * HD + ln.g;
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i)
+      attend<DP, kTail4>(w, kp + i * kBlockKeys * HD, vp + i * kBlockKeys * HD, HD, mk[i]);
+    __syncwarp();  // every lane has read its q rows of head h
+    w.store(qs + h * Dh, HD, lse_s + h * L, r0, L, Dh, ln);
+  }
+  __syncthreads();
+  store_span(o + base, qs, n, vec);
+  store_span(lse + (int64_t)b * H * L, lse_s, H * L, vec_lse);
+}
+
+// ------------------------------------------------------------ long route
+// Shared memory of a long-route block: two stages of a K and a V tile,
+// [kTile][Long<DP>::kRs] each, and seg [2][kTile]. The block's queries are
+// copied into the second stage's K tile first and read from there before
+// tile 1 is; O is assembled in the first stage at the end.
+template <int DP>
+__host__ __device__ constexpr int64_t long_bytes() {
+  return 4 * (4LL * Long<DP>::kTileFloats + 2LL * kTile);
+}
+
+// O and lse of the block's 64 queries of one head; the keys and values
+// stream through in tiles of 64.
+template <int DP, bool kTail4>
+__global__ void __launch_bounds__(kLongThreads,
+                                  DP <= 16 ? kLongMinBlocksNarrow : kLongMinBlocksWide)
+flash_fwd_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ seg,
+                      float* __restrict__ o, float* __restrict__ lse, int L, int H, int Dh,
+                      float scale, bool vec) {
+  constexpr int RS = Long<DP>::kRs, TF = Long<DP>::kTileFloats;
+  extern __shared__ float4 smem[];
+  float* tiles = reinterpret_cast<float*>(smem);  // stage i: K at 2i TF, V at (2i + 1) TF
+  int* seg_s = reinterpret_cast<int*>(tiles + 4 * TF);  // [2][kTile]
+  const Where w = where(L, H, Dh);
+  const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
+  const int qn = min(kTile, L - w.row0);
+  const int nt = (L + kTile - 1) / kTile;
+  const int64_t seg_b = (int64_t)w.b * L;
+  const Lane ln = lane();
+
+  // zeros wherever a copy does not write and a B read may go: the pad
+  // columns, and the rows past L of a last tile
+  for (int e = tid; e < (int)(long_bytes<DP>() / 16); e += kLongThreads)
+    smem[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  auto prefetch = [&](int t) {
+    const int buf = t & 1, k0 = t * kTile, n = min(kTile, L - k0);
+    float* st = tiles + 2 * buf * TF;
+    load_tile_async<DP, RS>(st, k, w.base, k0, n, HD, Dh, vec, tid);
+    load_tile_async<DP, RS>(st + TF, v, w.base, k0, n, HD, Dh, vec, tid);
+    for (int e = tid; e < n; e += kLongThreads)
+      cp_async4(seg_s + buf * kTile + e, seg + seg_b + k0 + e);
+    cp_async_commit();
+  };
+  load_tile_async<DP, RS>(tiles + 2 * TF, q, w.base, w.row0, qn, HD, Dh, vec, tid);
+  prefetch(0);  // one group with the block's queries
+  cp_async_wait<0>();
+  __syncthreads();
+  const float c2 = scale * kLog2e;
+  Query<DP> wq;
+  wq.load(View{tiles + 2 * TF, RS, qn, Dh}, seg + seg_b + w.row0, r0, qn, c2, ln);
+  __syncthreads();  // before tile 1 lands on the queries
+
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) prefetch(t + 1);
+    if (t > 0) {
+      if (t + 1 < nt)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int buf = t & 1, n = min(kTile, L - t * kTile);
+    if (r0 < qn) {
+      const float* kp = tiles + 2 * buf * TF + ln.g * RS + ln.t;
+      const float* vp = tiles + (2 * buf + 1) * TF + 2 * ln.t * RS + ln.g;
+      attend<DP, kTail4>(wq, kp, vp, RS, block_mask(wq, seg_s + buf * kTile, n, 0, ln));
+    }
+    __syncthreads();  // before this buffer is loaded again
+  }
+  wq.store(tiles, RS, lse + w.rows + w.row0, r0, qn, Dh, ln);
+  __syncthreads();
+  if (vec) {
+    const int cpr = Dh >> 2;
+    for (int e = tid; e < qn * cpr; e += kLongThreads) {
+      const int r = e / cpr, c = (e - r * cpr) << 2;
+      *reinterpret_cast<float4*>(o + w.base + (int64_t)(w.row0 + r) * HD + c) =
+          *reinterpret_cast<const float4*>(tiles + r * RS + c);
+    }
+  } else {
+    for (int e = tid; e < qn * Dh; e += kLongThreads) {
+      const int r = e / Dh, c = e - r * Dh;
+      o[w.base + (int64_t)(w.row0 + r) * HD + c] = tiles[r * RS + c];
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
 struct Args {
   const float *q, *k, *v;
   const int* seg;
@@ -214,43 +451,32 @@ struct Args {
   float scale;
 };
 
-template <int DT, int TPR>
-void launch(const Args& a, cudaStream_t stream) {
-  const int tiles = (a.L + kRows - 1) / kRows;
-  const dim3 grid((unsigned)((int64_t)a.B * tiles * a.H));
-  flash_fwd_kernel<DT, TPR><<<grid, Cfg<DT, TPR>::kThreads, 0, stream>>>(
-      a.q, a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale);
-}
+enum Which { kFused, kLong };
 
-int dispatch(const Args& a, void* stream) {
-  if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.Dh <= 0 || a.Dh > 64 ||
-      (int64_t)a.B * ((a.L + kRows - 1) / kRows) * a.H > 0x7fffffff)
+template <int DP, bool kTail4>
+struct Launch {
+  static void run(const Which& which, const Args& a, const cudaStream_t& s) {
+    const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o);
+    if (which == kFused) {
+      const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
+      const bool vec_lse = aligned16(a.lse) && (a.H * a.L) % 4 == 0;
+      launch_kernel(flash_fwd_fused_kernel<DP, kTail4>, (unsigned)a.B, (a.L + 15) / 16 * 32,
+                    fwd_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v, a.seg, a.o, a.lse, a.L,
+                    a.H, a.Dh, a.scale, vec, vec_lse);
+      return;
+    }
+    const unsigned grid = (unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H);
+    launch_kernel(flash_fwd_long_kernel<DP, kTail4>, grid, kLongThreads, long_bytes<DP>(), s,
+                  a.q, a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale,
+                  vec4 && a.Dh % 4 == 0);
+  }
+};
+
+int dispatch(Which which, const void* q, const void* k, const void* v, const void* seg,
+             void* o, void* lse, int B, int L, int H, int Dh, float scale, void* stream) {
+  if (!shape_ok(B, L, H, Dh)) return (int)cudaErrorInvalidValue;
+  if (which == kFused && (L > kFusedMaxL || fwd_smem_bytes(L, H, Dh) > kMaxSmem))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.Dh <= 8)
-    launch<8, 1>(a, s);
-  else if (a.Dh <= 12)
-    launch<12, 1>(a, s);
-  else if (a.Dh <= 16)
-    launch<16, 1>(a, s);
-  else if (a.Dh <= 24)
-    launch<24, 1>(a, s);
-  else if (a.Dh <= 32)
-    launch<32, 1>(a, s);
-  else if (a.Dh <= 48)
-    launch<24, 2>(a, s);
-  else
-    launch<32, 2>(a, s);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// Forward: o [B, L, H, Dh] and lse [B, H, L] (natural log).
-extern "C" int rtt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                       const void* seg, void* o, void* lse,
-                                       int B, int L, int H, int Dh, float scale,
-                                       void* stream) {
   Args a{};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -259,6 +485,27 @@ extern "C" int rtt_flash_attention_fwd(const void* q, const void* k, const void*
   a.o = static_cast<float*>(o);
   a.lse = static_cast<float*>(lse);
   a.B = B; a.L = L; a.H = H; a.Dh = Dh; a.scale = scale;
-  return dispatch(a, stream);
+  by_head_dim<Launch>(Dh, which, a, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Shared memory the fused route needs for one batch row (as fwd_route counts it).
+extern "C" long long rtt_flash_attention_fwd_fused_smem(int L, int H, int Dh) {
+  return fwd_smem_bytes(L, H, Dh);
+}
+
+// Fused route: o [B, L, H, Dh] and lse [B, H, L] (natural log).
+extern "C" int rtt_flash_attention_fwd_fused(const void* q, const void* k, const void* v,
+                                             const void* seg, void* o, void* lse, int B, int L,
+                                             int H, int Dh, float scale, void* stream) {
+  return dispatch(kFused, q, k, v, seg, o, lse, B, L, H, Dh, scale, stream);
+}
+
+// Long route: the same outputs from the same inputs.
+extern "C" int rtt_flash_attention_fwd_long(const void* q, const void* k, const void* v,
+                                            const void* seg, void* o, void* lse, int B, int L,
+                                            int H, int Dh, float scale, void* stream) {
+  return dispatch(kLong, q, k, v, seg, o, lse, B, L, H, Dh, scale, stream);
+}

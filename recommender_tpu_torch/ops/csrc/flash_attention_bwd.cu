@@ -29,7 +29,7 @@
 //   36 us; 10 L^2 Dh per (b, h) = 3.8 GFLOP -> 23 us. Bytes bound it.
 // * B128 L1001 H4 Dh64, long: dK/dV 2.6e11 FLOP -> 1.6 ms (0.79 GB -> 0.24
 //   ms), dQ 2.0e11 FLOP -> 1.2 ms (0.66 GB -> 0.20 ms). Operations bound it.
-// They run at 12-22% of these bounds (times: PERF.md, from chip_smoke.py
+// They run at 9-23% of these bounds (times: PERF.md, from chip_smoke.py
 // phase k2). Each 16 x 8 step is a dependent chain (shared loads, split, the
 // S and dP products, exp2, the split of P and dS, the dV and dK products),
 // and the warps resident on an SM (14 for the fused kernel, whose 110 KB
@@ -68,231 +68,25 @@
 // returns cudaGetLastError() after its launch (cudaErrorInvalidValue for a
 // shape it does not take).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kFusedMaxL = 128;
-constexpr int kTile = 64;  // long route: rows per streamed tile
-constexpr int kLongThreads = kTile / 16 * 32;
 // Blocks per SM the long-route kernels ask registers for at DP <= 16: five
 // (<= 102 registers) rather than the four that 116-123 registers allow.
 // Worth ~5% at L 1001, Dh 9 (BST at history 1,000), as is the k = 4 tail
 // (PERF.md).
 constexpr int kLongMinBlocksNarrow = 5;
-constexpr int64_t kMaxSmem = 232448;  // the most shared memory one block may use
 
 // Row stride of the fused route's dS^T: >= L, and 8 mod 16 so that the
 // transposed A reads of one warp hit 32 different banks.
 __host__ __device__ constexpr int fused_lds(int L) { return (L + 15) / 16 * 16 + 8; }
-
-// Floats of one tensor's span of n in the fused route: rounded up to 16
-// bytes, then 16 zeros. B reads of the last row reach DP - Dh <= 15 floats
-// past its Dh, and meet only these zeros.
-__host__ __device__ constexpr int fused_span(int n) { return (n + 3) / 4 * 4 + 16; }
 
 // q, k, v, dO spans, dS^T [L][fused_lds], lse and di [H][L], seg [L].
 // Mirrored by ops/flash_attention.py.
 int64_t fused_smem_bytes(int L, int H, int Dh) {
   return 4 * (4LL * fused_span(L * H * Dh) + (int64_t)L * fused_lds(L) + 2LL * H * L + L);
 }
-
-// ------------------------------------------------------------ copies
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ------------------------------------------------------------ 3xTF32 mma
-// x = hi + lo: hi is x rounded to TF32's 10 mantissa bits (round half away
-// from zero on the bits), lo = x - hi exactly. lo is passed as it is: the
-// tensor core reads the top 19 bits of a TF32 operand, so lo loses at most
-// 2^-10 of itself, i.e. 2^-21 of x (the 3xTF32 "fast" split of CUTLASS).
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
-  FragA f;
-  split(a0, f.hi[0], f.lo[0]);
-  split(a1, f.hi[1], f.lo[1]);
-  split(a2, f.hi[2], f.lo[2]);
-  split(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-__device__ __forceinline__ FragB split_b(float b0, float b1) {
-  FragB f;
-  split(b0, f.hi[0], f.lo[0]);
-  split(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The same with k = 4: A's columns t (a[0], a[1]) and B's row t (b[0]) of
-// the k = 8 fragments.
-__device__ __forceinline__ void mma_k4(float (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b[0]));
-}
-
-// c += a b at f32 accuracy: the small products first, then hi * hi.
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
-  mma(c, a.lo, b.hi);
-  mma(c, a.hi, b.lo);
-  mma(c, a.hi, b.hi);
-}
-
-// The same product for a short sum over k: the three products go to three
-// accumulators, so that three dependent chains run side by side
-// (Acc3::sum adds them up at the end).
-struct Acc3 {
-  float hh[4], lh[4], hl[4];
-  __device__ __forceinline__ Acc3() {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) hh[e] = lh[e] = hl[e] = 0.f;
-  }
-  __device__ __forceinline__ void add(const FragA& a, const FragB& b) {
-    mma(lh, a.lo, b.hi);
-    mma(hl, a.hi, b.lo);
-    mma(hh, a.hi, b.hi);
-  }
-  // only the first 4 of the 8 columns of k: where Dh ends there
-  __device__ __forceinline__ void add_k4(const FragA& a, const FragB& b) {
-    mma_k4(lh, a.lo, b.hi);
-    mma_k4(hl, a.hi, b.lo);
-    mma_k4(hh, a.hi, b.hi);
-  }
-  __device__ __forceinline__ float sum(int e) const { return hh[e] + (lh[e] + hl[e]); }
-};
-
-// ------------------------------------------------------------ fragments
-// Rows of one head in shared memory: element (r, c) at p[r * stride + c].
-// operator() reads 0 outside [0, rows) x [0, cols): A fragments, which pad
-// L and Dh with zeros. at() clamps the row into [0, rows) and reads any
-// column below the padded width DP: B fragments, whose padding only meets
-// zeros of the A side or is masked. Columns [Dh, DP) hold the next head's
-// or row's inputs, the fused span's zero tail, or the long tiles' zeroed
-// pad columns: never uninitialised memory.
-struct View {
-  const float* p;
-  int stride, rows, cols;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return r < rows && c < cols ? p[r * stride + c] : 0.f;
-  }
-  __device__ __forceinline__ float at(int r, int c) const {
-    return p[min(r, rows - 1) * stride + c];
-  }
-};
-
-// groupID and threadID_in_group of the PTX ISA's fragment layouts: an A
-// fragment (16 x 8) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); a B
-// fragment (8 x 8) holds (k = t, n = g), (t + 4, g); an accumulator (16 x 8)
-// holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-struct Lane {
-  int g, t;
-};
-
-__device__ __forceinline__ Lane lane() {
-  const int l = threadIdx.x & 31;
-  return {l >> 2, l & 3};
-}
-
-// A[m][k] = X(r0 + m, c0 + k)
-__device__ __forceinline__ FragA load_a(const View& x, int r0, int c0, Lane l) {
-  return split_a(x(r0 + l.g, c0 + l.t), x(r0 + l.g + 8, c0 + l.t),
-                 x(r0 + l.g, c0 + l.t + 4), x(r0 + l.g + 8, c0 + l.t + 4));
-}
-
-// A[m][k] = X(r0 + k, c0 + m)
-__device__ __forceinline__ FragA load_at(const View& x, int r0, int c0, Lane l) {
-  return split_a(x(r0 + l.t, c0 + l.g), x(r0 + l.t, c0 + l.g + 8),
-                 x(r0 + l.t + 4, c0 + l.g), x(r0 + l.t + 4, c0 + l.g + 8));
-}
-
-// B[k][n] = X(r0 + k, c0 + n)
-__device__ __forceinline__ FragB load_b(const View& x, int r0, int c0, Lane l) {
-  return split_b(x.at(r0 + l.t, c0 + l.g), x.at(r0 + l.t + 4, c0 + l.g));
-}
-
-// B[k][n] = X(r0 + n, c0 + k): products with the rows of X
-__device__ __forceinline__ FragB load_bt(const View& x, int r0, int c0, Lane l) {
-  return split_b(x.at(r0 + l.g, c0 + l.t), x.at(r0 + l.g, c0 + l.t + 4));
-}
-
-// An accumulator as the A operand of the next product. A lane holds columns
-// 2t and 2t + 1 of its rows where an A fragment wants columns t and t + 4; a
-// product sums over k in any order, so k = t stands for column 2t and
-// k = t + 4 for column 2t + 1, and the B operand is read in that order
-// (load_b_acc). No shuffle is needed.
-__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
-  return split_a(c[0], c[2], c[1], c[3]);
-}
-
-// B[k][n] = X(r0 + k', c0 + n), k' the column order of acc_as_a
-__device__ __forceinline__ FragB load_b_acc(const View& x, int r0, int c0, Lane l) {
-  return split_b(x.at(r0 + 2 * l.t, c0 + l.g), x.at(r0 + 2 * l.t + 1, c0 + l.g));
-}
-
-// A warp's own rows as A fragments, one per 8 columns: split once where the
-// registers allow it (DP <= 32), else kept in f32 and split at each use.
-template <bool kSplit>
-struct ARows;
-
-template <>
-struct ARows<true> {
-  FragA f;
-  __device__ __forceinline__ void set(const View& x, int r0, int c0, Lane l) {
-    f = load_a(x, r0, c0, l);
-  }
-  __device__ __forceinline__ FragA get() const { return f; }
-};
-
-template <>
-struct ARows<false> {
-  float x[4];
-  __device__ __forceinline__ void set(const View& v, int r0, int c0, Lane l) {
-    x[0] = v(r0 + l.g, c0 + l.t);
-    x[1] = v(r0 + l.g + 8, c0 + l.t);
-    x[2] = v(r0 + l.g, c0 + l.t + 4);
-    x[3] = v(r0 + l.g + 8, c0 + l.t + 4);
-  }
-  __device__ __forceinline__ FragA get() const { return split_a(x[0], x[1], x[2], x[3]); }
-};
 
 // The 16 rows a warp owns from row r0: A fragments of two tensors (k and v,
 // or q and dO), and the seg and liveness of the lane's rows g and g + 8.
@@ -317,9 +111,6 @@ struct Own {
     }
   }
 };
-
-template <int DP>
-using Acc = float[DP / 8][4];
 
 // The other side's 8 rows at j0 as the lane's accumulator columns 2t and
 // 2t + 1, and whether the 16 x 8 tile holds a visible pair at all. A tile
@@ -441,14 +232,6 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out, int64_t base,
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void zero(Acc<DP>& acc) {
-#pragma unroll
-  for (int nn = 0; nn < DP / 8; ++nn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
-}
-
 // ------------------------------------------------------------ fused route
 // One block per batch row b, one warp per 16 rows (L rounded up to 16); the
 // heads one after the other. Per head: each warp takes 16 keys and streams
@@ -556,65 +339,12 @@ flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ long route
-// Rows [row0, row0 + n) of one head of a [B, L, H, Dh] tensor (base is the
-// offset of (b, 0, h, 0)) into dst[r * RS + c], c < Dh, by cp.async.
-template <int RS>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ x,
-                                                int64_t base, int row0, int n, int HD,
-                                                int Dh, bool vec, int tid) {
-  if (vec) {
-    const int cpr = Dh >> 2;
-    for (int e = tid; e < n * cpr; e += kLongThreads) {
-      const int r = e / cpr, c = (e - r * cpr) << 2;
-      cp_async16(dst + r * RS + c, x + base + (int64_t)(row0 + r) * HD + c);
-    }
-  } else {
-    for (int e = tid; e < n * Dh; e += kLongThreads) {
-      const int r = e / Dh, c = e - r * Dh;
-      cp_async4(dst + r * RS + c, x + base + (int64_t)(row0 + r) * HD + c);
-    }
-  }
-}
-
 // Shared memory of a long-route block: its own two tiles and the two
-// streamed ones double-buffered, [kTile][RS] each, and three row vectors
-// [2][kTile].
+// streamed ones double-buffered, [kTile][Long<DP>::kRs] each, and three row
+// vectors [2][kTile].
 template <int DP>
-struct Long {
-  static constexpr int kRs = DP + 4;  // 4 mod 8: A and B reads hit 32 banks
-  static constexpr int kTileFloats = kTile * kRs;
-  static constexpr int64_t kBytes = 4 * (6LL * kTileFloats + 6LL * kTile);
-};
-
-// Columns [Dh, DP) of a long-route block's six tiles, which the copies never
-// write and B reads meet.
-template <int DP>
-__device__ __forceinline__ void zero_pad_columns(float* tiles, int Dh, int tid) {
-  const int w = DP - Dh;
-  for (int e = tid; e < 6 * kTile * w; e += kLongThreads) {
-    const int r = e / w;
-    tiles[r * Long<DP>::kRs + Dh + (e - r * w)] = 0.f;
-  }
-}
-
-// blockIdx.x = (b * tiles + tile) * H + h, as the forward.
-struct Where {
-  int b, h, row0;
-  int64_t base;  // offset of (b, 0, h, 0) in a [B, L, H, Dh] tensor
-  int64_t rows;  // offset of (b, h, 0) in a [B, H, L] tensor
-};
-
-__device__ __forceinline__ Where where(int L, int H, int Dh) {
-  const int tiles = (L + kTile - 1) / kTile;
-  int blk = blockIdx.x;
-  Where w;
-  w.h = blk % H;
-  blk /= H;
-  w.row0 = (blk % tiles) * kTile;
-  w.b = blk / tiles;
-  w.base = (int64_t)w.b * L * H * Dh + (int64_t)w.h * Dh;
-  w.rows = ((int64_t)w.b * H + w.h) * L;
-  return w;
+constexpr int64_t long_bytes() {
+  return 4 * (6LL * Long<DP>::kTileFloats + 6LL * kTile);
 }
 
 // dK, dV of the block's 64 keys; the queries stream through in tiles of 64.
@@ -640,13 +370,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nt = (L + kTile - 1) / kTile;
   const Lane l = lane();
 
-  zero_pad_columns<DP>(reinterpret_cast<float*>(smem), Dh, tid);
-  load_tile_async<RS>(ks, k, w.base, w.row0, kn, HD, Dh, vec, tid);
-  load_tile_async<RS>(vs, v, w.base, w.row0, kn, HD, Dh, vec, tid);
+  zero_pad_columns<DP>(reinterpret_cast<float*>(smem), 6, Dh, tid);
+  load_tile_async<DP, RS>(ks, k, w.base, w.row0, kn, HD, Dh, vec, tid);
+  load_tile_async<DP, RS>(vs, v, w.base, w.row0, kn, HD, Dh, vec, tid);
   auto prefetch = [&](int t) {
     const int buf = t & 1, q0 = t * kTile, n = min(kTile, L - q0);
-    load_tile_async<RS>(qs + buf * TF, q, w.base, q0, n, HD, Dh, vec, tid);
-    load_tile_async<RS>(dos + buf * TF, dout, w.base, q0, n, HD, Dh, vec, tid);
+    load_tile_async<DP, RS>(qs + buf * TF, q, w.base, q0, n, HD, Dh, vec, tid);
+    load_tile_async<DP, RS>(dos + buf * TF, dout, w.base, q0, n, HD, Dh, vec, tid);
     for (int e = tid; e < n; e += kLongThreads) {
       cp_async4(lse_s + buf * kTile + e, lse + w.rows + q0 + e);
       cp_async4(di_s + buf * kTile + e, di + w.rows + q0 + e);
@@ -711,13 +441,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nt = (L + kTile - 1) / kTile;
   const Lane l = lane();
 
-  zero_pad_columns<DP>(reinterpret_cast<float*>(smem), Dh, tid);
-  load_tile_async<RS>(qs, q, w.base, w.row0, qn, HD, Dh, vec, tid);
-  load_tile_async<RS>(dos, dout, w.base, w.row0, qn, HD, Dh, vec, tid);
+  zero_pad_columns<DP>(reinterpret_cast<float*>(smem), 6, Dh, tid);
+  load_tile_async<DP, RS>(qs, q, w.base, w.row0, qn, HD, Dh, vec, tid);
+  load_tile_async<DP, RS>(dos, dout, w.base, w.row0, qn, HD, Dh, vec, tid);
   auto prefetch = [&](int t) {
     const int buf = t & 1, k0 = t * kTile, n = min(kTile, L - k0);
-    load_tile_async<RS>(ks + buf * TF, k, w.base, k0, n, HD, Dh, vec, tid);
-    load_tile_async<RS>(vs + buf * TF, v, w.base, k0, n, HD, Dh, vec, tid);
+    load_tile_async<DP, RS>(ks + buf * TF, k, w.base, k0, n, HD, Dh, vec, tid);
+    load_tile_async<DP, RS>(vs + buf * TF, v, w.base, k0, n, HD, Dh, vec, tid);
     for (int e = tid; e < n; e += kLongThreads)
       cp_async4(seg_s + buf * kTile + e, seg + (int64_t)w.b * L + k0 + e);
     cp_async_commit();
@@ -769,64 +499,37 @@ struct Args {
 
 enum Which { kFused, kDkv, kDq };
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-template <typename Kernel, typename... Ts>
-void launch_kernel(Kernel kernel, unsigned grid, int threads, int64_t smem,
-                   cudaStream_t stream, Ts... args) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  kernel<<<grid, threads, smem, stream>>>(args...);
-}
-
 template <int DP, bool kTail4>
-void launch(Which which, const Args& a, cudaStream_t s) {
-  const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
-  if (which == kFused) {
-    const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
-    const int threads = (a.L + 15) / 16 * 32;
-    launch_kernel(flash_bwd_fused_kernel<DP, kTail4>, (unsigned)a.B, threads,
-                  fused_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v, a.seg, a.o, a.dout,
-                  a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
-    return;
+struct Launch {
+  static void run(const Which& which, const Args& a, const cudaStream_t& s) {
+    const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
+    if (which == kFused) {
+      const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
+      const int threads = (a.L + 15) / 16 * 32;
+      launch_kernel(flash_bwd_fused_kernel<DP, kTail4>, (unsigned)a.B, threads,
+                    fused_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v, a.seg, a.o, a.dout,
+                    a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
+      return;
+    }
+    const bool vec = vec4 && a.Dh % 4 == 0;
+    const unsigned grid = (unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H);
+    if (which == kDkv)
+      launch_kernel(flash_bwd_dkv_kernel<DP, kTail4>, grid, kLongThreads, long_bytes<DP>(), s,
+                    a.q, a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dk, a.dv, a.L, a.H, a.Dh,
+                    a.scale, vec);
+    else
+      launch_kernel(flash_bwd_dq_kernel<DP, kTail4>, grid, kLongThreads, long_bytes<DP>(), s,
+                    a.q, a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dq, a.L, a.H, a.Dh, a.scale,
+                    vec);
   }
-  const bool vec = vec4 && a.Dh % 4 == 0;
-  const unsigned grid = (unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H);
-  if (which == kDkv)
-    launch_kernel(flash_bwd_dkv_kernel<DP, kTail4>, grid, kLongThreads, Long<DP>::kBytes, s, a.q,
-                  a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dk, a.dv, a.L, a.H, a.Dh, a.scale,
-                  vec);
-  else
-    launch_kernel(flash_bwd_dq_kernel<DP, kTail4>, grid, kLongThreads, Long<DP>::kBytes, s, a.q,
-                  a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dq, a.L, a.H, a.Dh, a.scale, vec);
-}
+};
 
 int dispatch(Which which, const Args& a, void* stream) {
-  if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.Dh <= 0 || a.Dh > 64 ||
-      (int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(a.B, a.L, a.H, a.Dh)) return (int)cudaErrorInvalidValue;
   if (which == kFused &&
       (a.L > kFusedMaxL || fused_smem_bytes(a.L, a.H, a.Dh) > kMaxSmem))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.Dh <= 4)
-    launch<8, true>(which, a, s);
-  else if (a.Dh <= 8)
-    launch<8, false>(which, a, s);
-  else if (a.Dh <= 12)
-    launch<16, true>(which, a, s);
-  else if (a.Dh <= 16)
-    launch<16, false>(which, a, s);
-  else if (a.Dh <= 24)
-    launch<24, false>(which, a, s);
-  else if (a.Dh <= 32)
-    launch<32, false>(which, a, s);
-  else if (a.Dh <= 48)
-    launch<48, false>(which, a, s);
-  else
-    launch<64, false>(which, a, s);
+  by_head_dim<Launch>(a.Dh, which, a, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

@@ -3,17 +3,26 @@
 Port of the attention kernel that ``recommender_tpu/nn/transformer.py::
 _flash_mha`` reaches: JAX's Pallas TPU ``flash_attention`` (its forward and
 its two backward kernels). Here the kernels are hand-written CUDA, bound
-through ``_FlashMHA``, a ``torch.autograd.Function``: the forward
-(``csrc/flash_attention.cu``) saves the row log-sum-exp; the backward
-(``csrc/flash_attention_bwd.cu``) takes one of two routes, which
-``bwd_route`` picks from the shape:
+through ``_FlashMHA``, a ``torch.autograd.Function``. The forward
+(``csrc/flash_attention.cu``) saves the row log-sum-exp and takes one of
+two routes, which ``fwd_route`` picks from the shape:
+
+* ``"fused"``: one block per batch row holds q, k and v of all its heads
+  and writes o and lse. It takes L up to ``FUSED_MAX_L`` where the block's
+  shared memory (``fwd_smem_bytes``) fits; BST's L 101, H 4, Dh 9 does;
+* ``"long"``: a block owns 64 queries of one head and streams the keys in
+  tiles of 64.
+
+The backward (``csrc/flash_attention_bwd.cu``) takes one of two routes,
+which ``bwd_route`` picks:
 
 * ``"fused"``: one launch computes ``di = rowsum(dO * O)``, dQ, dK and dV,
-  one block per batch row holding all its heads. It takes L up to
-  ``FUSED_MAX_L`` where the block's shared memory (``fused_smem_bytes``)
-  fits; BST's L 101, H 4, Dh 9 does;
+  one block per batch row holding all its heads, where its shared memory
+  (``fused_smem_bytes``) fits at L up to ``FUSED_MAX_L``;
 * ``"long"``: the wrapper computes ``di``, then a dK/dV kernel and a dQ
   kernel run, each streaming the other side's rows in tiles of 64.
+
+Both sets of kernels run on the tensor cores at f32 accuracy (3xTF32).
 
 Semantics are the TPU kernel's ``SegmentIds(seg, seg)`` with
 ``seg = valid``: key j is visible to query i iff ``valid[b, i] ==
@@ -24,8 +33,10 @@ JAX wrapper pads L to a multiple of 128 and Dh to 128 lanes; the port pads
 neither, so its pad rows see only the real pad positions.
 
 ``flash_mha`` launches the kernels for CUDA tensors and counts the
-launches in ``flash_mha.launches_fwd``, ``.launches_bwd`` (fused route),
-``.launches_bwd_dkv`` and ``.launches_bwd_dq`` (long route). For CPU
+launches in ``flash_mha.launches_fwd`` (every forward),
+``.launches_fwd_fused`` and ``.launches_fwd_long`` (the forward by route),
+``.launches_bwd`` (fused backward), ``.launches_bwd_dkv`` and
+``.launches_bwd_dq`` (long backward). For CPU
 tensors it computes the same function with ``flash_mha_ref``, the plain
 PyTorch version that the tests and ``chip_smoke.py`` hold the kernels
 against.
@@ -45,43 +56,66 @@ FUSED_MAX_L = 128
 MAX_BLOCK_SMEM = 232_448
 
 
+def _span(L: int, H: int, Dh: int) -> int:
+    """Floats of one tensor's [L, H, Dh] span in a fused block: rounded up
+    to 16 bytes, then 16 zeros (``fused_span`` in ``csrc/flash_mma.cuh``)."""
+    return -(-L * H * Dh // 4) * 4 + 16
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def fwd_smem_bytes(L: int, H: int, Dh: int) -> int:
+    """Shared memory of one fused-forward block (one batch row): the q, k
+    and v spans with L rounded up to 8 rows of zeros, lse [H, L] and seg
+    [round8(L)]. The same count as ``fwd_smem_bytes`` in
+    ``csrc/flash_attention.cu``."""
+    return 4 * (3 * _span(_round8(L), H, Dh) + H * L + _round8(L))
+
+
 def fused_smem_bytes(L: int, H: int, Dh: int) -> int:
-    """Shared memory of one fused-backward block (one batch row): q, k, v
-    and dO of all heads, each span rounded up to 16 bytes and followed by 16
-    zeros; dS^T of one head [L, round16(L) + 8]; lse and di [H, L]; seg [L].
-    The same count as ``fused_smem_bytes`` in ``csrc/flash_attention_bwd.cu``."""
-    span = -(-L * H * Dh // 4) * 4 + 16
+    """Shared memory of one fused-backward block (one batch row): the q, k,
+    v and dO spans; dS^T of one head [L, round16(L) + 8]; lse and di [H, L];
+    seg [L]. The same count as ``fused_smem_bytes`` in
+    ``csrc/flash_attention_bwd.cu``."""
     lds = -(-L // 16) * 16 + 8
-    return 4 * (4 * span + L * lds + 2 * H * L + L)
+    return 4 * (4 * _span(L, H, Dh) + L * lds + 2 * H * L + L)
+
+
+def _route(L: int, smem: int) -> str:
+    return "fused" if L <= FUSED_MAX_L and smem <= MAX_BLOCK_SMEM else "long"
+
+
+def fwd_route(L: int, H: int, Dh: int) -> str:
+    """The forward's route: ``"fused"`` where one block holds a batch row
+    (L <= ``FUSED_MAX_L`` and ``fwd_smem_bytes`` within
+    ``MAX_BLOCK_SMEM``), else ``"long"``."""
+    return _route(L, fwd_smem_bytes(L, H, Dh))
 
 
 def bwd_route(L: int, H: int, Dh: int) -> str:
-    """``"fused"`` where one block holds a batch row (L <= ``FUSED_MAX_L``
-    and ``fused_smem_bytes`` within ``MAX_BLOCK_SMEM``), else ``"long"``."""
-    if L <= FUSED_MAX_L and fused_smem_bytes(L, H, Dh) <= MAX_BLOCK_SMEM:
-        return "fused"
-    return "long"
+    """The backward's route: ``"fused"`` where one block holds a batch row
+    (L <= ``FUSED_MAX_L`` and ``fused_smem_bytes`` within
+    ``MAX_BLOCK_SMEM``), else ``"long"``."""
+    return _route(L, fused_smem_bytes(L, H, Dh))
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fns():
-    """The C entries of ``csrc/flash_attention.cu`` (forward) and
-    ``csrc/flash_attention_bwd.cu`` (fused, dK/dV, dQ), built at first use."""
-    fwd_lib = _build.load("flash_attention")
-    bwd_lib = _build.load("flash_attention_bwd")
+def _kernel_fns() -> dict:
+    """The C entries of ``csrc/flash_attention.cu`` (``fwd_fused``,
+    ``fwd_long``) and ``csrc/flash_attention_bwd.cu`` (``bwd_fused``,
+    ``bwd_dkv``, ``bwd_dq``), built at first use."""
+    libs = {"fwd": _build.load("flash_attention"), "bwd": _build.load("flash_attention_bwd")}
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32, i32, i32, i32, f32, vp]  # B, L, H, Dh, scale, stream
-    fwd = fwd_lib.rtt_flash_attention_fwd
-    fwd.argtypes = [vp] * 6 + dims
-    fused = bwd_lib.rtt_flash_attention_bwd_fused
-    fused.argtypes = [vp] * 10 + dims
-    dkv = bwd_lib.rtt_flash_attention_bwd_dkv
-    dkv.argtypes = [vp] * 9 + dims
-    dq = bwd_lib.rtt_flash_attention_bwd_dq
-    dq.argtypes = [vp] * 8 + dims
-    for fn in (fwd, fused, dkv, dq):
-        fn.restype = i32
-    return fwd, fused, dkv, dq
+    fns = {}
+    for name, pointers in (("fwd_fused", 6), ("fwd_long", 6), ("bwd_fused", 10),
+                           ("bwd_dkv", 9), ("bwd_dq", 8)):
+        fn = getattr(libs[name[:3]], f"rtt_flash_attention_{name}")
+        fn.argtypes, fn.restype = [vp] * pointers + dims, i32
+        fns[name] = fn
+    return fns
 
 
 def _check_args(q, k, v, valid):
@@ -129,13 +163,7 @@ class _FlashMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg):
         q, k, v = (t.contiguous() for t in (q, k, v))
-        B, L, H, Dh = q.shape
-        fwd = _kernel_fns()[0]
-        o = torch.empty_like(q)
-        lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-        _launch("forward", fwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                seg.data_ptr(), o.data_ptr(), lse.data_ptr(), B, L, H, Dh, _scale(Dh))
-        flash_mha.launches_fwd += 1
+        o, lse = _forward(q, k, v, seg)
         ctx.save_for_backward(q, k, v, seg, o, lse)
         return o
 
@@ -145,14 +173,32 @@ class _FlashMHA(torch.autograd.Function):
         return (*_backward(q, k, v, seg, o, lse, do.contiguous()), None)
 
 
+def _forward(q, k, v, seg):
+    """o and lse [B, H, L] by the route ``fwd_route`` picks (contiguous
+    inputs)."""
+    B, L, H, Dh = q.shape
+    route = fwd_route(L, H, Dh)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    _launch(f"{route} forward", _kernel_fns()[f"fwd_{route}"], q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B, L, H, Dh, _scale(Dh))
+    flash_mha.launches_fwd += 1
+    if route == "fused":
+        flash_mha.launches_fwd_fused += 1
+    else:
+        flash_mha.launches_fwd_long += 1
+    return o, lse
+
+
 def _backward(q, k, v, seg, o, lse, do):
     """dq, dk, dv by the route ``bwd_route`` picks (contiguous inputs)."""
     B, L, H, Dh = q.shape
-    _, fused, dkv, dq_fn = _kernel_fns()
+    fns = _kernel_fns()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dims = (B, L, H, Dh, _scale(Dh))
     if bwd_route(L, H, Dh) == "fused":
-        _launch("fused backward", fused, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _launch("fused backward", fns["bwd_fused"], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 seg.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
         flash_mha.launches_bwd += 1
@@ -160,9 +206,9 @@ def _backward(q, k, v, seg, o, lse, do):
     di = (do * o).sum(dim=-1).transpose(1, 2).contiguous()  # [B, H, L]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
               do.data_ptr(), lse.data_ptr(), di.data_ptr())
-    _launch("dK/dV", dkv, q.device, *common, dk.data_ptr(), dv.data_ptr(), *dims)
+    _launch("dK/dV", fns["bwd_dkv"], q.device, *common, dk.data_ptr(), dv.data_ptr(), *dims)
     flash_mha.launches_bwd_dkv += 1
-    _launch("dQ", dq_fn, q.device, *common, dq.data_ptr(), *dims)
+    _launch("dQ", fns["bwd_dq"], q.device, *common, dq.data_ptr(), *dims)
     flash_mha.launches_bwd_dq += 1
     return dq, dk, dv
 
@@ -183,6 +229,8 @@ def flash_mha(q, k, v, valid) -> torch.Tensor:
 
 
 flash_mha.launches_fwd = 0
+flash_mha.launches_fwd_fused = 0
+flash_mha.launches_fwd_long = 0
 flash_mha.launches_bwd = 0
 flash_mha.launches_bwd_dkv = 0
 flash_mha.launches_bwd_dq = 0

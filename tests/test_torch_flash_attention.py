@@ -11,9 +11,9 @@ so pad query rows are defined differently on each side: forward outputs
 are compared on valid rows, and gradients under a cotangent that is zero
 on pad rows (as BST's masked readout gives), where all rows agree.
 
-The ``cuda``-marked tests hold the CUDA kernels (the forward, and the
-backward on both of its routes) against ``flash_mha_ref`` on the card and
-skip without one. jax is imported inside the tests that use it, so they
+The ``cuda``-marked tests hold the CUDA kernels (the forward and the
+backward, each on both of its routes) against ``flash_mha_ref`` on the
+card and skip without one. jax is imported inside the tests that use it, so they
 also run where jax is not installed:
 
     python -m pytest tests/test_torch_flash_attention.py -m cuda --noconftest
@@ -22,14 +22,15 @@ Tolerances (f32 on both sides, sums in another order):
 * against JAX, forward 2e-6 and q/k/v gradients 1e-5 abs (inputs ~N(0, 1));
 * kernels against the plain version on the card, as a share of the
   largest magnitude of the plain result: forward 1e-5, gradients 1e-4
-  (the kernel's exp2 differs from torch's exp by a few ulp, the backward
-  sums L terms in another order, and its products are 3xTF32:
+  (the kernel's exp2 differs from torch's exp by a few ulp, the kernels
+  sum L terms in another order, and their products are 3xTF32:
   ``test_3xtf32_products_meet_the_tolerance_where_tf32_does_not``).
 """
 import numpy as np
 import pytest
 import torch
 
+from recommender_tpu_torch.ops import _build
 from recommender_tpu_torch.ops import flash_attention as fa
 
 FWD_REL_TOL = 1e-5
@@ -176,8 +177,19 @@ def test_flash_mha_rejects_mismatched_arguments(case):
         fa.flash_mha(q, k, q, valid)
 
 
+_COUNTERS = ("fwd", "fwd_fused", "fwd_long", "bwd", "bwd_dkv", "bwd_dq")
+
+
 def _counts():
-    return {n: getattr(fa.flash_mha, f"launches_{n}") for n in ("fwd", "bwd", "bwd_dkv", "bwd_dq")}
+    return {n: getattr(fa.flash_mha, f"launches_{n}") for n in _COUNTERS}
+
+
+def _launched(fwd_route, bwd_route, times=1):
+    """The launches one forward and backward make on these routes."""
+    fused = bwd_route == "fused"
+    return {"fwd": times, "fwd_fused": times * (fwd_route == "fused"),
+            "fwd_long": times * (fwd_route == "long"), "bwd": times * fused,
+            "bwd_dkv": times * (not fused), "bwd_dq": times * (not fused)}
 
 
 def test_cpu_path_launches_nothing():
@@ -206,6 +218,67 @@ def test_cpu_path_launches_nothing():
 )
 def test_bwd_route_is_a_function_of_the_shape(L, H, Dh, route):
     assert fa.bwd_route(L, H, Dh) == route
+
+
+@pytest.mark.parametrize(
+    "L,H,Dh,route",
+    [
+        (1, 1, 1, "fused"),
+        (101, 4, 9, "fused"),  # BST
+        (128, 4, 9, "fused"),
+        (129, 4, 9, "long"),
+        (1001, 4, 9, "long"),  # the TPU flash probe
+        (1001, 4, 64, "long"),
+        (128, 2, 64, "fused"),  # 198,336 bytes of shared memory
+        (128, 3, 64, "long"),
+        (101, 4, 64, "long"),  # 4 heads of Dh 64 do not fit one block
+        (128, 2, 40, "fused"),  # long for the backward: the forward's block is smaller
+    ],
+)
+def test_fwd_route_is_a_function_of_the_shape(L, H, Dh, route):
+    assert fa.fwd_route(L, H, Dh) == route
+
+
+def test_fwd_smem_bytes_at_bst_and_at_the_limit():
+    """BST's forward block: 3 spans of 104 x 4 x 9 floats (L rounded up to
+    8 rows, 3,744, +16 zeros), lse 4 x 101, seg 104: four such blocks fit
+    one SM's 228 KB. Over MAX_BLOCK_SMEM the route turns long; every shape
+    the fused backward takes, the fused forward takes too."""
+    assert fa.fwd_smem_bytes(101, 4, 9) == 4 * (3 * 3760 + 404 + 104) == 47_152
+    dims = [(128, h, dh) for h in range(1, 17) for dh in range(1, 65)]
+    for L, H, Dh in dims:
+        fits = fa.fwd_smem_bytes(L, H, Dh) <= fa.MAX_BLOCK_SMEM
+        assert fa.fwd_route(L, H, Dh) == ("fused" if fits else "long")
+        assert fa.bwd_route(L, H, Dh) == "long" or fits
+    assert {fa.fwd_route(*d) for d in dims} == {"fused", "long"}
+
+
+def test_library_path_follows_every_header(tmp_path, monkeypatch):
+    """A kernel's library is named by a hash of its source and of every
+    ``csrc/*.cuh``: an edit to a header, or a new header, builds anew."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build.library_path("k")
+    (tmp_path / "g.cuh").write_text("// new\n")
+    third = _build.library_path("k")
+    assert len({first, second, third}) == 3
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("libk-")
+
+
+def test_library_path_names_a_variant_by_its_defines(tmp_path, monkeypatch):
+    """A build with ``-D`` defines is a library of its own; the same
+    defines name the same library."""
+    (tmp_path / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    shipped = _build.library_path("k")
+    variant = _build.library_path("k", ("-DMIN_BLOCKS=1",))
+    assert variant != shipped
+    assert _build.library_path("k", ("-DMIN_BLOCKS=1",)) == variant
+    assert _build.library_path("k", ("-DMIN_BLOCKS=2",)) not in (shipped, variant)
 
 
 def test_fused_smem_bytes_at_bst_and_at_the_limit():
@@ -243,12 +316,22 @@ def _mm_3xtf32(a, b):
     return ah @ bh + (ah @ bl + al @ bh)
 
 
-def test_3xtf32_products_meet_the_tolerance_where_tf32_does_not():
-    """The backward's five products (S, dP, dV, dK, dQ) emulated in numpy at
-    BST's L 101, H 4, Dh 9 (8 batch rows): with operands rounded to TF32 the
-    gradients miss BWD_REL_TOL; with the kernel's 3xTF32 split they meet it
-    with a wide margin. This is why the kernel spends three tensor-core
-    products on each f32 product."""
+def _mm_f32(a, b):
+    return (a.astype(np.float32) @ b.astype(np.float32)).astype(np.float64)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_3xtf32_products_meet_the_tolerance_where_tf32_does_not(kernel):
+    """The kernels' products emulated in numpy at BST's L 101, H 4, Dh 9 (8
+    batch rows): the forward's two (S, and P V with P in f32) and the
+    backward's five (S, dP, dV, dK, dQ). With operands rounded to TF32 the
+    results miss their tolerance; with the kernels' 3xTF32 split they meet
+    it with a wide margin. This is why the kernels spend three tensor-core
+    products on each f32 product.
+
+    The forward's margin is 10x, not the backward's 100x: its tolerance is
+    10x tighter, and 3xTF32 there is as close as f32 products are
+    (2-3e-7 of max|o|, the rounding of the f32 sums and of P itself)."""
     rng = np.random.default_rng(0)
     B, L, H, Dh = 8, 101, 4, 9
     q, k, v, do = (rng.normal(size=(B, H, L, Dh)).astype(np.float32) for _ in range(4))
@@ -256,23 +339,33 @@ def test_3xtf32_products_meet_the_tolerance_where_tf32_does_not():
     valid[:, -1] = True
     same = valid[:, None, :, None] == valid[:, None, None, :]
     scale = 1 / np.sqrt(Dh)
+    t = lambda x: np.swapaxes(x, -1, -2)  # noqa: E731
 
-    def grads(mm):
-        t = lambda x: np.swapaxes(x, -1, -2)  # noqa: E731
+    def probs(mm):
         s = np.where(same, mm(q, t(k)) * scale, -np.inf)
         p = np.exp(s - s.max(-1, keepdims=True))
-        p /= p.sum(-1, keepdims=True)
+        return p / p.sum(-1, keepdims=True)
+
+    def fwd(mm):
+        return (mm(probs(mm).astype(np.float32), v),)
+
+    def bwd(mm):
+        p = probs(mm)
         di = (do * (p @ v.astype(np.float64))).sum(-1, keepdims=True)
         ds = p * (mm(do, t(v)) - di)
         return mm(ds, k) * scale, mm(t(ds), q) * scale, mm(t(p), do)
 
-    want = grads(lambda a, b: a.astype(np.float64) @ b.astype(np.float64))
+    outputs = fwd if kernel == "fwd" else bwd
+    want = outputs(lambda a, b: a.astype(np.float64) @ b.astype(np.float64))
 
     def worst(mm):
-        return max(np.abs(g - w).max() / max(1.0, np.abs(w).max()) for g, w in zip(grads(mm), want))
+        return max(np.abs(g - w).max() / max(1.0, np.abs(w).max())
+                   for g, w in zip(outputs(mm), want))
 
-    assert worst(_mm_3xtf32) < BWD_REL_TOL / 100
-    assert worst(_mm_tf32) > BWD_REL_TOL
+    tol, margin = (FWD_REL_TOL, 10) if kernel == "fwd" else (BWD_REL_TOL, 100)
+    assert worst(_mm_3xtf32) < tol / margin
+    assert worst(_mm_3xtf32) < 2 * worst(_mm_f32)
+    assert worst(_mm_tf32) > tol
 
 
 # ------------------------------------------------------------------ on the card
@@ -302,14 +395,19 @@ _KERNEL_SHAPES = [
 ]
 
 
+def _routes(route):
+    """The routes a shape can be forced onto: the long routes take any."""
+    return ("fused", "long") if route == "fused" else ("long",)
+
+
 def _kernel_cases():
-    """(B, L, H, Dh, route, valid): the shapes above; L 1, 64, 101, 127,
-    128, 129, 200 with Dh cycling through 5, 9, 16, 33, 48, 64 and H as
-    large as the fused block holds; each on both routes where the fused
-    one takes it.
-    Then BST's shape with every position valid, and with only the target
-    position valid. Together they run every head-dim instantiation of both
-    kernel files."""
+    """(B, L, H, Dh, forward route, backward route, valid): the shapes
+    above; L 1, 64, 101, 127, 128, 129, 200 with Dh cycling through 5, 9,
+    16, 33, 48, 64 and H as large as the fused backward block holds; each on
+    both routes of the forward and of the backward where the fused one takes
+    it. Then BST's shape on every pair of routes with every position valid,
+    and with only the target position valid. Together they run every
+    head-dim instantiation of both kernel files."""
     dhs = [5, 9, 16, 33, 48, 64]
     shapes = list(_KERNEL_SHAPES)
     for i, L in enumerate((1, 64, 101, 127, 128, 129, 200)):
@@ -318,32 +416,35 @@ def _kernel_cases():
         shapes.append((3, L, H, Dh))
     cases = []
     for B, L, H, Dh in shapes:
-        for route in ("fused", "long"):
-            if route == "long" or fa.bwd_route(L, H, Dh) == "fused":
-                cases.append((B, L, H, Dh, route, "ragged"))
-    for route in ("fused", "long"):
-        for valid in ("all", "target_only"):
-            cases.append((8, 101, 4, 9, route, valid))
+        for fwd in _routes(fa.fwd_route(L, H, Dh)):
+            for bwd in _routes(fa.bwd_route(L, H, Dh)):
+                cases.append((B, L, H, Dh, fwd, bwd, "ragged"))
+    for fwd in ("fused", "long"):
+        for bwd in ("fused", "long"):
+            for valid in ("all", "target_only"):
+                cases.append((8, 101, 4, 9, fwd, bwd, valid))
     return cases
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,H,Dh,route,valid_kind", _kernel_cases())
-def test_kernels_match_ref(cuda_device, monkeypatch, B, L, H, Dh, route, valid_kind):
-    """The forward and the backward on ``route`` (forced where the shape
-    would take the other one) against the plain version."""
+@pytest.mark.parametrize("B,L,H,Dh,fwd_route,bwd_route,valid_kind", _kernel_cases())
+def test_kernels_match_ref(cuda_device, monkeypatch, B, L, H, Dh, fwd_route, bwd_route,
+                           valid_kind):
+    """The forward on ``fwd_route`` and the backward on ``bwd_route`` (each
+    forced where the shape would take the other one) against the plain
+    version."""
     q, k, v, valid, _ = _inputs(B, L, H, Dh, seed=B * L + Dh)
     if valid_kind == "all":
         valid[:] = 1.0
     elif valid_kind == "target_only":
         valid[:, :-1] = 0.0
-    monkeypatch.setattr(fa, "bwd_route", lambda *shape: route)
+    monkeypatch.setattr(fa, "fwd_route", lambda *shape: fwd_route)
+    monkeypatch.setattr(fa, "bwd_route", lambda *shape: bwd_route)
     cot = np.random.default_rng(0).normal(size=q.shape).astype(np.float32)
     before = _counts()
     got = _port_grads(q, k, v, valid, cot, device=cuda_device)
     launched = {n: c - before[n] for n, c in _counts().items()}
-    assert launched == ({"fwd": 1, "bwd": 1, "bwd_dkv": 0, "bwd_dq": 0} if route == "fused"
-                        else {"fwd": 1, "bwd": 0, "bwd_dkv": 1, "bwd_dq": 1})
+    assert launched == _launched(fwd_route, bwd_route)
     ts = [torch.tensor(x, device=cuda_device, requires_grad=True) for x in (q, k, v)]
     o = fa.flash_mha_ref(*ts, torch.tensor(valid, device=cuda_device))
     (o * torch.tensor(cot, device=cuda_device)).sum().backward()
@@ -356,9 +457,13 @@ def test_kernels_match_ref(cuda_device, monkeypatch, B, L, H, Dh, route, valid_k
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,route", [(101, "fused"), (200, "long")])
-def test_kernels_are_bitwise_repeatable_and_counted(cuda_device, L, route):
-    assert fa.bwd_route(L, 4, 9) == route
+@pytest.mark.parametrize("L,fwd_route,bwd_route",
+                         [(101, "fused", "fused"), (101, "long", "fused"), (200, "long", "long")])
+def test_kernels_are_bitwise_repeatable_and_counted(cuda_device, monkeypatch, L, fwd_route,
+                                                    bwd_route):
+    assert fa.bwd_route(L, 4, 9) == bwd_route
+    if fa.fwd_route(L, 4, 9) != fwd_route:  # BST's shape on the long forward
+        monkeypatch.setattr(fa, "fwd_route", lambda *shape: fwd_route)
     q, k, v, valid, _ = _inputs(8, L, 4, 9, seed=5)
     cot = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
     n = _counts()
@@ -366,10 +471,8 @@ def test_kernels_are_bitwise_repeatable_and_counted(cuda_device, L, route):
     second = _port_grads(q, k, v, valid, cot, device=cuda_device)
     for a, b in zip(first, second):
         assert np.array_equal(a, b)
-    fused = route == "fused"
-    assert _counts() == {"fwd": n["fwd"] + 2, "bwd": n["bwd"] + 2 * fused,
-                         "bwd_dkv": n["bwd_dkv"] + 2 * (not fused),
-                         "bwd_dq": n["bwd_dq"] + 2 * (not fused)}
+    want = _launched(fwd_route, bwd_route, times=2)
+    assert _counts() == {c: n[c] + want[c] for c in _COUNTERS}
 
 
 @pytest.mark.cuda
@@ -378,9 +481,31 @@ def test_fused_smem_bytes_matches_the_kernel(cuda_device):
     kernel allocates (and refuses to exceed)."""
     import ctypes
 
-    from recommender_tpu_torch.ops import _build
-
     fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_fused_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     for L, H, Dh in [(1, 1, 1), (101, 4, 9), (128, 4, 9), (128, 1, 64), (77, 3, 33), (128, 8, 64)]:
         assert fn(L, H, Dh) == fa.fused_smem_bytes(L, H, Dh)
+
+
+@pytest.mark.cuda
+def test_fwd_smem_bytes_matches_the_kernel(cuda_device):
+    """The same for the fused forward's block."""
+    import ctypes
+
+    fn = _build.load("flash_attention").rtt_flash_attention_fwd_fused_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for L, H, Dh in [(1, 1, 1), (101, 4, 9), (128, 4, 9), (128, 2, 64), (77, 3, 33), (128, 8, 64)]:
+        assert fn(L, H, Dh) == fa.fwd_smem_bytes(L, H, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,shape", [("fused", (2, 129, 2, 9)), ("long", (2, 5, 2, 65))])
+def test_forward_refuses_what_its_route_does_not_take(cuda_device, monkeypatch, route, shape):
+    """The forward's C entry refuses a shape its route does not take (L past
+    the fused block; Dh past 64, which ``flash_mha`` checks first), and the
+    wrapper raises: nothing falls back."""
+    monkeypatch.setattr(fa, "fwd_route", lambda *s: route)
+    q = torch.zeros(shape, device=cuda_device)
+    seg = torch.ones(shape[:2], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match=f"{route} forward"):
+        fa._forward(q, q, q, seg)
