@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-Two paths, each at the full width of a model the repository supports, with
+Three paths, each at the full width of a model the repository supports, with
 random weights drawn from seed 0:
 
 * DLRM training at ``bench.py`` width: a 1,000,000 x 16 embedding table
@@ -15,7 +15,15 @@ random weights drawn from seed 0:
   BatchNorm, batch 1024, lr 1e-3, on ``SyntheticSequence`` batches, with
   flash attention (the K2 kernels) on both blocks; and the same BST at the
   TPU flash probe's history of 1,000 (batch 128), whose L 1,001 takes K2's
-  long backward route.
+  long backward route;
+* DIEN training at ``benchmarks/bench_models.py::bench_dien`` width
+  (``dien_amazon_b1024_T100``): the same two tables, masked GRU and AUGRU of
+  36 hidden units over a history of 100, the auxiliary net and loss, MLP
+  72→200→80→1 with input BatchNorm, batch 1024, lr 1e-3, with f32 and with
+  bf16 tables; DIN at the same width; DIEN at history 1,000 (batch 128) with
+  and without rematerialized recurrences; and the
+  ``recommender_tpu_torch.cli.train_dien`` entry point with a checkpoint and
+  a resume.
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
@@ -32,7 +40,10 @@ Phases, one JSON line each (k2 one per shape):
                   (212,992 ids into [1M, 16]): f32 and bf16 rounding, with
                   and without ``order``, with ids >= V; at BST's item and
                   cat history lookups (102,400 ids into [400,000, 18] and
-                  [1,500, 18]); and at the DLRM shape with bf16 + ``order``
+                  [1,500, 18]); at DIEN's negative-history lookup (f32 and
+                  bf16) and at the ``shared_gather`` lookup (205,824 ids:
+                  target, positive and negative history in one); and at the
+                  DLRM shape with bf16 + ``order``
                   for the worst skew (every id equal) and its uniform twin
                   (ids uniform in [0, 1M)), whose times must stay within 2x;
                   bitwise repeatability; kernel and plain times (CUDA
@@ -70,6 +81,23 @@ Phases, one JSON line each (k2 one per shape):
                   from the same init: the losses must agree.
 9. bst_card_cpu — a small BST for 3 steps from one init on the card (K2)
                   and on the CPU (its plain version); the losses must agree.
+10. dien_train  — 50 DIEN Trainer steps at full width (f32 tables, the
+                  auxiliary-loss task), then ``evaluate`` on 20 held-out
+                  batches; K1 must launch exactly 6 times a step. Then 10
+                  steps with bf16 tables and stochastic rounding, and 10 with
+                  ``shared_gather`` (K1 exactly 2 a step, the f32 run's losses).
+11. din_train   — 20 DIN Trainer steps at the same width; K1 exactly 4 a step.
+12. dien_long   — DIEN at history 1,000, batch 128: 3 steps with the
+                  recurrences rematerialized (the default above 256 steps) and
+                  3 from the same init without; the losses must agree.
+13. dien_card_cpu — a small DIEN for 3 steps from one init on the card and on
+                  the CPU; the losses must agree.
+14. dien_cli    — ``cli.train_dien.main`` on the card (``--synthetic``, DIEN,
+                  a checkpoint directory under build/): the final exact eval
+                  AUC must clear 0.5 by ``DIEN_CLI_AUC_MARGIN``; then the same
+                  command for half the steps and ``--resume`` for the rest:
+                  the final parameters must equal the straight run's bit for
+                  bit.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -79,6 +107,12 @@ and as the last line ``{"ok": true, "device": {...}}``.
 profiles the BST step instead (``profile_bst``: synced and unsynced step
 times, then ``torch.profiler`` over 10 steps), in a process of its own: a
 profiler run slows every later launch of the process.
+
+    python3 chip_smoke.py --profile-dien
+
+does the same for the DIEN step (``profile_dien``): launches per step and
+device busy time by part of the model (the two recurrences, forward and
+backward, attention, auxiliary net, embeddings with K1, head, optimizer).
 
     python3 chip_smoke.py --fwd-occupancy
 
@@ -90,11 +124,15 @@ line. It exits non-zero at once where no CUDA device is available.
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import copy
 import ctypes
 import functools
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -105,9 +143,18 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from recommender_tpu_torch.cli import train_dien
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 from recommender_tpu_torch.data import SyntheticCTR, SyntheticSequence, batch_iterator
-from recommender_tpu_torch.models import BST, DLRM, init_model, make_ctr_task
+from recommender_tpu_torch.models import (
+    BST,
+    DIEN,
+    DIN,
+    DLRM,
+    init_model,
+    make_aux_loss_task,
+    make_ctr_task,
+)
 from recommender_tpu_torch.ops import _build
 from recommender_tpu_torch.ops import embedding_kernels as ek
 from recommender_tpu_torch.ops import flash_attention as fa
@@ -165,6 +212,35 @@ BST_PATHS_AUC_TOL = 5e-3
 BST_LONG_T = 1000
 BST_LONG_BATCH = 128
 BST_LONG_STEPS = 5
+
+# DIEN and DIN at bench_models.py::bench_dien width (dien_amazon_b1024_T100):
+# BST's tables, history and batch; K1 launches per step: one per table and
+# id set (target, positive history, and for DIEN the negative history)
+DIEN_K1_PER_STEP = 6
+DIN_K1_PER_STEP = 4
+DIEN_BF16_STEPS = 10
+# shared_gather: one lookup per table for the three id sets, so K1 launches
+# twice a step; the forward is the same, and the tables' gradients are summed
+# in another order, which Adam carries into the later steps' losses
+DIEN_SHARED_K1_PER_STEP = 2
+DIEN_SHARED_STEPS = 10
+DIEN_SHARED_LOSS_TOL = 1e-4
+DIN_STEPS = 20
+# DIEN at history 1,000, batch 128 (the long-history row of
+# benchmarks/RESULTS.md): rematerialized recurrences against stored ones
+# from one init. Both compute the same forward; their gradients differ by
+# f32 roundoff, which Adam carries into the next step's loss.
+DIEN_LONG_STEPS = 3
+DIEN_REMAT_LOSS_TOL = 1e-5
+# cli.train_dien on the card: DIEN on the default SyntheticSequence (1,000
+# items, history 20), batch 128, lr 3e-3 (tests/test_dien.py's learning
+# set-up, at the entry point's default widths).
+DIEN_CLI_STEPS = 160
+DIEN_CLI_ARGS = ("--synthetic", "--model_type", "DIEN", "--history_max_length", "20",
+                 "--train_batch_size", "128", "--learning_rate", "3e-3",
+                 "--log_every", "40", "--eval_every", "0")
+# The final exact eval AUC of that run must clear 0.5 by this margin.
+DIEN_CLI_AUC_MARGIN = 0.2
 
 # H100 SXM peaks (NVIDIA data sheet, dense), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
@@ -296,7 +372,7 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
                          bound_ms=bound_ms)
 
 
-def phase_k1(device, bst_batch: dict) -> dict:
+def phase_k1(device, seq_batch: dict) -> dict:
     sorted_ids, order, upd = k1_inputs(device)
     upd_sorted = upd.index_select(0, order.long()).contiguous()
     upd_bf16 = upd.to(torch.bfloat16)
@@ -315,13 +391,30 @@ def phase_k1(device, bst_batch: dict) -> dict:
     # BST's history lookup backwards: one real batch's ids, pad id 0 included
     for name, key, vocab in (("bst_item_history_f32_order", "pos_his_item", BST_ITEMS),
                              ("bst_cat_history_f32_order", "pos_his_cat", BST_CATS)):
-        raw = torch.from_numpy(bst_batch[key].reshape(-1).astype(np.int32)).to(device)
+        raw = torch.from_numpy(seq_batch[key].reshape(-1).astype(np.int32)).to(device)
         sorted_ids, order = torch.sort(raw, stable=True)
         order = order.to(torch.int32)
         g = torch.Generator(device=device).manual_seed(SEED)
         upd = torch.randn((raw.numel(), 18), generator=g, device=device)
         _k1_case(results, name, sorted_ids, upd, order, torch.float32,
                  upd.index_select(0, order.long()), vocab, pad_rows=int((raw == 0).sum()))
+    # DIEN's item-table backwards: the negative history (ids uniform over the
+    # table at real steps), with an f32 and a bf16 cotangent, and the
+    # shared_gather lookup (target, positive and negative history in one)
+    neg = seq_batch["neg_his_item"].reshape(-1)
+    shared = np.concatenate([seq_batch["target_item"].reshape(-1),
+                             seq_batch["pos_his_item"].reshape(-1), neg])
+    for name, ids, dtype in (("dien_neg_history_f32_order", neg, torch.float32),
+                             ("dien_neg_history_bf16_order", neg, torch.bfloat16),
+                             ("dien_shared_gather_f32_order", shared, torch.float32)):
+        raw = torch.from_numpy(ids.astype(np.int32)).to(device)
+        sorted_ids, order = torch.sort(raw, stable=True)
+        order = order.to(torch.int32)
+        g = torch.Generator(device=device).manual_seed(SEED)
+        upd = torch.randn((raw.numel(), 18), generator=g, device=device).to(dtype)
+        _k1_case(results, name, sorted_ids, upd, order, torch.float32,
+                 upd.index_select(0, order.long()).float(), BST_ITEMS,
+                 pad_rows=int((raw == 0).sum()))
     # skew: every id equal, against ids uniform over the table (bf16 + order)
     n = BATCH * 26
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -586,14 +679,21 @@ def phase_card_cpu(device):
     check(diff <= CARD_CPU_LOSS_TOL, f"card vs CPU losses differ by {diff}")
 
 
-def bst_data() -> tuple[dict, dict]:
-    """Train and held-out ``SyntheticSequence`` batches at bench_bst's shape
-    (sampled once, before any timed window; the negative histories, which
-    BST does not read, are dropped)."""
+def sequence_data() -> tuple[dict, dict]:
+    """Train and held-out ``SyntheticSequence`` batches at the shape of
+    bench_bst and bench_dien (sampled once, before any timed window)."""
     gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=BST_T, seed=SEED)
-    strip = lambda b: {k: v for k, v in b.items() if not k.startswith("neg_")}  # noqa: E731
-    return (strip(gen.sample(STEPS * BST_BATCH, seed=1)),
-            strip(gen.sample(EVAL_BATCHES * BST_BATCH, seed=2)))
+    return gen.sample(STEPS * BST_BATCH, seed=1), gen.sample(EVAL_BATCHES * BST_BATCH, seed=2)
+
+
+def without_negatives(batches: dict) -> dict:
+    """Drop the negative histories, which only DIEN reads."""
+    return {k: v for k, v in batches.items() if not k.startswith("neg_")}
+
+
+def bst_data() -> tuple[dict, dict]:
+    train, test = sequence_data()
+    return without_negatives(train), without_negatives(test)
 
 
 K2_COUNTERS = ("fwd", "fwd_fused", "fwd_long", "bwd", "bwd_dkv", "bwd_dq")
@@ -760,6 +860,229 @@ def phase_bst_card_cpu(device):
     check(diff <= CARD_CPU_LOSS_TOL, f"BST card vs CPU losses differ by {diff}")
 
 
+def _sequence_model(cls, device, table_dtype=torch.float32, **kw):
+    model = cls(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, embed_param_dtype=table_dtype,
+                device=device, **kw)
+    return init_model(model, seed=SEED)
+
+
+def _task_of(model):
+    return make_aux_loss_task(model) if isinstance(model, DIEN) else make_ctr_task(model)
+
+
+def _timed_fit(model, device, train, batch: int, steps: int):
+    """``steps`` Trainer steps with a log point (a sync) at each: the
+    trainer, the state, each step's metrics, the host clock at each log point
+    and the K1 launches of the fit."""
+    loss_fn, eval_fn = _task_of(model)
+    cfg = TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED)
+    trainer = Trainer(loss_fn, cfg, eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    logs, stamps = [], []
+
+    def log_fn(m):
+        stamps.append(time.perf_counter())  # float(loss) at each step syncs
+        logs.append(m)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    state, _ = trainer.fit(state, batch_iterator(train, batch, seed=SEED), steps, log_fn=log_fn)
+    torch.cuda.synchronize()
+    return trainer, state, logs, stamps, ek.sorted_scatter_add.launches
+
+
+def _check_fit(name, state, logs, steps, launches, per_step):
+    losses = [m["loss"] for m in logs]
+    check(state.step == steps == len(logs), f"{name} took {state.step} steps, wanted {steps}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite {name} training loss")
+    check(launches == per_step * steps,
+          f"{name}: K1 launched {launches} times in {steps} steps, wanted {per_step} a step")
+
+
+def phase_dien_train(device, train, test) -> int:
+    """DIEN at bench_dien width with f32 tables, then a few steps of the
+    bf16-table variant (stochastic rounding on both tables) and of the
+    ``shared_gather`` variant (K1 twice a step) from the f32 run's init."""
+    model = _sequence_model(DIEN, device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state, logs, stamps, launches = _timed_fit(model, device, train, BST_BATCH, STEPS)
+    ev = trainer.evaluate(state, batch_iterator(test, BST_BATCH, shuffle=False), exact=True)
+    torch.cuda.synchronize()
+    eval_launches = ek.sorted_scatter_add.launches - launches
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in logs]
+    step_ms = np.diff(np.array(stamps))[-TIMED_STEPS:] * 1e3
+
+    bf16 = _sequence_model(DIEN, device, torch.bfloat16)
+    _, bf16_state, bf16_logs, bf16_stamps, bf16_launches = _timed_fit(
+        bf16, device, train, BST_BATCH, DIEN_BF16_STEPS)
+    bf16_ms = np.diff(np.array(bf16_stamps)) * 1e3
+    shared = _sequence_model(DIEN, device, shared_gather=True)
+    _, shared_state, shared_logs, shared_stamps, shared_launches = _timed_fit(
+        shared, device, train, BST_BATCH, DIEN_SHARED_STEPS)
+    shared_losses = [m["loss"] for m in shared_logs]
+    shared_diff = max(abs(a - b) for a, b in zip(shared_losses, losses))
+    emit("dien_train", steps=state.step, batch=BST_BATCH, item_vocab=BST_ITEMS,
+         cat_vocab=BST_CATS, history=BST_T, table_dtype="float32",
+         first_loss=losses[0], last_loss=losses[-1], losses=losses,
+         first_aux_loss=logs[0]["aux_loss"], last_aux_loss=logs[-1]["aux_loss"],
+         ms_per_step_median=float(np.median(step_ms)),
+         ms_per_step_min=float(step_ms.min()), ms_per_step_max=float(step_ms.max()),
+         examples_per_s=BST_BATCH / (float(np.median(step_ms)) / 1e3),
+         eval=ev, peak_memory_gib=peak, seconds=wall,
+         k1_launches=launches, k1_per_step=DIEN_K1_PER_STEP,
+         bf16sr=dict(steps=bf16_state.step, losses=[m["loss"] for m in bf16_logs],
+                     first_aux_loss=bf16_logs[0]["aux_loss"],
+                     last_aux_loss=bf16_logs[-1]["aux_loss"],
+                     ms_per_step_median=float(np.median(bf16_ms)), k1_launches=bf16_launches),
+         shared_gather=dict(steps=shared_state.step, losses=shared_losses,
+                            ms_per_step_median=float(np.median(np.diff(shared_stamps)) * 1e3),
+                            k1_launches=shared_launches, k1_per_step=DIEN_SHARED_K1_PER_STEP,
+                            max_loss_diff_to_separate_lookups=shared_diff,
+                            tolerance=DIEN_SHARED_LOSS_TOL))
+    _check_fit("DIEN", state, logs, STEPS, launches, DIEN_K1_PER_STEP)
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"DIEN loss did not fall: {losses[:5]} -> {losses[-5:]}")
+    check(eval_launches == 0, f"evaluate launched K1 {eval_launches} times")
+    check(ev["eval_batches"] == EVAL_BATCHES, "DIEN eval batch count")
+    check(math.isfinite(ev["eval_loss"]) and 0.0 <= ev["eval_auc_exact"] <= 1.0, "DIEN eval")
+    _check_fit("DIEN bf16", bf16_state, bf16_logs, DIEN_BF16_STEPS, bf16_launches,
+               DIEN_K1_PER_STEP)
+    check(bf16.item_embedding.embedding.dtype == torch.bfloat16, "bf16 table dtype")
+    _check_fit("DIEN shared_gather", shared_state, shared_logs, DIEN_SHARED_STEPS,
+               shared_launches, DIEN_SHARED_K1_PER_STEP)
+    check(shared_diff <= DIEN_SHARED_LOSS_TOL,
+          f"shared_gather losses differ from separate lookups' by {shared_diff}")
+    return launches + bf16_launches + shared_launches
+
+
+def phase_din_train(device, train) -> int:
+    model = _sequence_model(DIN, device)
+    torch.cuda.reset_peak_memory_stats()
+    _, state, logs, stamps, launches = _timed_fit(
+        model, device, without_negatives(train), BST_BATCH, DIN_STEPS)
+    losses = [m["loss"] for m in logs]
+    step_ms = np.diff(np.array(stamps))[-10:] * 1e3
+    emit("din_train", steps=state.step, batch=BST_BATCH, history=BST_T, table_dtype="float32",
+         losses=losses, ms_per_step_median=float(np.median(step_ms)),
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+         k1_launches=launches, k1_per_step=DIN_K1_PER_STEP)
+    _check_fit("DIN", state, logs, DIN_STEPS, launches, DIN_K1_PER_STEP)
+    return launches
+
+
+def phase_dien_long(device) -> int:
+    """DIEN at history 1,000: ``remat=None`` turns rematerialization on
+    (T > 256); the same steps from the same init with ``remat=False``."""
+    data = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=BST_LONG_T,
+                             seed=SEED).sample(DIEN_LONG_STEPS * BST_LONG_BATCH, seed=1)
+    model = _sequence_model(DIEN, device)
+    stored = copy.deepcopy(model)
+    stored.extract_gru.remat = stored.evolve.remat = False
+    runs, total = {}, 0
+    for name, m in (("remat", model), ("stored", stored)):
+        torch.cuda.reset_peak_memory_stats()
+        _, state, logs, stamps, launches = _timed_fit(
+            m, device, data, BST_LONG_BATCH, DIEN_LONG_STEPS)
+        _check_fit(f"DIEN long ({name})", state, logs, DIEN_LONG_STEPS, launches,
+                   DIEN_K1_PER_STEP)
+        runs[name] = dict(losses=[x["loss"] for x in logs],
+                          ms_per_step=(np.diff(np.array(stamps)) * 1e3).tolist(),
+                          peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          k1_launches=launches)
+        total += launches
+    diff = max(abs(a - b) for a, b in zip(runs["remat"]["losses"], runs["stored"]["losses"]))
+    emit("dien_long", steps=DIEN_LONG_STEPS, batch=BST_LONG_BATCH, history=BST_LONG_T,
+         **runs, remat_vs_stored_max_loss_diff=diff, tolerance=DIEN_REMAT_LOSS_TOL)
+    check(model.extract_gru.remat is None and model.evolve.remat is None, "remat is not auto")
+    check(diff <= DIEN_REMAT_LOSS_TOL, f"remat vs stored DIEN losses differ by {diff}")
+    return total
+
+
+SMALL_DIEN = dict(item_vocab=300, cat_vocab=20, item_dim=8, cat_dim=8, mlp_units=(32, 16, 1),
+                  extract_hidden=12, evolve_hidden=10)
+
+
+def _small_dien(device, state_dict, data) -> list[float]:
+    model = DIEN(**SMALL_DIEN, device=device)
+    model.load_state_dict(state_dict)
+    loss_fn, eval_fn = make_aux_loss_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1), eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    losses = []
+    trainer.fit(state, batch_iterator(data, 256, seed=SEED), 3,
+                log_fn=lambda m: losses.append(m["loss"]))
+    return losses
+
+
+def phase_dien_card_cpu(device):
+    data = SyntheticSequence(num_items=300, num_cats=20, max_len=20, seed=SEED).sample(3 * 256, seed=1)
+    init = init_model(DIEN(**SMALL_DIEN), seed=SEED).state_dict()
+    launches = ek.sorted_scatter_add.launches
+    card = _small_dien(device, init, data)
+    launched = ek.sorted_scatter_add.launches - launches
+    cpu = _small_dien(torch.device("cpu"), init, data)
+    diff = max(abs(a - b) for a, b in zip(card, cpu))
+    emit("dien_card_cpu", card_losses=card, cpu_losses=cpu, max_abs_diff=diff,
+         tolerance=CARD_CPU_LOSS_TOL, k1_launches_on_card=launched)
+    check(len(card) == len(cpu) == 3, "DIEN card/CPU step count")
+    check(launched == 3 * DIEN_K1_PER_STEP, f"card run launched K1 {launched} times")
+    check(diff <= CARD_CPU_LOSS_TOL, f"DIEN card vs CPU losses differ by {diff}")
+
+
+def _cli_run(args: list[str]):
+    """``train_dien.main(args)`` with its JSON lines captured: the state it
+    returns and the lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = train_dien.main(args)
+    return state, [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def phase_dien_cli() -> int:
+    """The entry point as a user calls it (``--device`` at its default, the
+    card): a straight run, then half the steps and ``--resume`` for the rest."""
+    root = _build.BUILD_DIR / "dien_cli_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    half = DIEN_CLI_STEPS // 2
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    straight, lines = _cli_run([*DIEN_CLI_ARGS, "--steps", str(DIEN_CLI_STEPS),
+                                "--checkpoint_dir", str(root / "straight")])
+    seconds = time.perf_counter() - t0
+    launches = ek.sorted_scatter_add.launches
+    _cli_run([*DIEN_CLI_ARGS, "--steps", str(half), "--checkpoint_dir", str(root / "resumed")])
+    resumed, resumed_lines = _cli_run([*DIEN_CLI_ARGS, "--steps", str(DIEN_CLI_STEPS - half),
+                                       "--resume", "--checkpoint_dir", str(root / "resumed")])
+    final, resumed_final = lines[-1], resumed_lines[-1]
+    want, got = straight.model.state_dict(), resumed.model.state_dict()
+    differing = [k for k in want if not torch.equal(want[k], got[k])]
+    moments = straight.optimizer.state_dict(), resumed.optimizer.state_dict()
+    differing += [f"{w}[{i}]" for w in ("mu", "nu")
+                  for i, (a, b) in enumerate(zip(moments[0][w], moments[1][w]))
+                  if not torch.equal(a, b)]
+    files = sorted(f.name for f in (root / "resumed").iterdir())
+    emit("dien_cli", args=list(DIEN_CLI_ARGS), steps=DIEN_CLI_STEPS, device=str(
+        next(straight.model.parameters()).device), log=lines[:-1], final=final,
+         resumed_final=resumed_final, auc_margin=DIEN_CLI_AUC_MARGIN, seconds=seconds,
+         k1_launches=launches, resumed_step=resumed.step, checkpoints=files,
+         tensors_differing_after_resume=differing)
+    shutil.rmtree(root, ignore_errors=True)
+    check(next(straight.model.parameters()).device.type == "cuda", "the CLI did not run on the card")
+    check(straight.step == DIEN_CLI_STEPS == resumed.step, "CLI step counts")
+    check(final.get("final") == 1 and math.isfinite(final["eval_loss"]), "CLI final eval line")
+    check(final["eval_auc_exact"] > 0.5 + DIEN_CLI_AUC_MARGIN,
+          f"CLI eval_auc_exact {final['eval_auc_exact']} <= 0.5 + {DIEN_CLI_AUC_MARGIN}")
+    check(launches == DIEN_K1_PER_STEP * DIEN_CLI_STEPS, f"CLI run launched K1 {launches} times")
+    check(files == [f"step_{DIEN_CLI_STEPS}.pt", f"step_{half}.pt"], f"checkpoints {files}")
+    check(not differing, f"resumed run differs from the straight run in {differing}")
+    check(final == resumed_final, "resumed run's final eval differs")
+    return launches
+
+
 # kernel-name fragments for the profile's parts, matched in this order
 PROFILE_PARTS = (
     ("k2_fwd", ("flash_fwd_",)),
@@ -827,6 +1150,138 @@ def profile_bst(device, steps: int = 10) -> dict:
                 top_kernels_ms_per_step={n: t / steps / 1e3 for n, t in top})
 
 
+# DIEN's parts for the profile: a part is the submodules whose forward (and,
+# through autograd's sequence numbers, backward) work it collects
+DIEN_PARTS = {
+    "embeddings": ("item_embedding", "cat_embedding"),
+    "extract_gru": ("extract_gru",),
+    "aux_net": ("auxiliary_net",),
+    "attention": ("attention",),
+    "evolve_augru": ("evolve",),
+    "head": ("mlp",),
+}
+
+
+def _mark(name: str):
+    """A zero-length profiler event: work that starts after it, on the
+    forward thread, belongs to ``name`` until the next mark."""
+    with torch.profiler.record_function(f"mark:{name}"):
+        pass
+
+
+def _install_marks(model, optimizer) -> list:
+    """Hooks that mark where each part's forward begins and ends, and the
+    optimizer step. Returns the hook handles."""
+    handles = []
+    for part, names in DIEN_PARTS.items():
+        for name in names:
+            module = getattr(model, name)
+            handles.append(module.register_forward_pre_hook(
+                lambda m, a, part=part: _mark(part)))
+            handles.append(module.register_forward_hook(lambda m, a, o: _mark("glue")))
+    handles.append(optimizer.register_step_pre_hook(lambda o, a, k: _mark("optimizer")))
+    handles.append(optimizer.register_step_post_hook(lambda o, a, k: _mark("glue")))
+    return handles
+
+
+def _busy_by_part(events) -> tuple[dict, dict]:
+    """Device time (us) and launches by part. A forward op belongs to the
+    part whose mark came last before it; a backward node (an
+    ``evaluate_function`` event of the autograd engine) to the part of the
+    forward op with its sequence number; the optimizer's work to
+    ``optimizer``; what neither rule places to ``other``."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    marks = sorted((e.time_range.start, e.name[len("mark:"):]) for e in cpu
+                   if e.name.startswith("mark:"))
+    starts = [t for t, _ in marks]
+
+    def marked(e):
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        return marks[i][1] if i >= 0 else "other"
+
+    def top(e):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+        return e
+
+    is_backward = lambda e: e.name.startswith("autograd::engine::evaluate_function")  # noqa: E731
+    seq_part = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and not is_backward(top(e)) and not e.name.startswith("mark:"):
+            seq_part.setdefault(e.sequence_nr, marked(e))
+    us, launches = {}, {}
+    for e in cpu:
+        if not e.kernels:
+            continue
+        root = top(e)
+        if is_backward(root):
+            part = "bwd:" + seq_part.get(root.sequence_nr, "other")
+        else:
+            part = marked(e)
+            part = part if part in ("optimizer", "other") else "fwd:" + part
+        us[part] = us.get(part, 0.0) + sum(k.duration for k in e.kernels)
+        launches[part] = launches.get(part, 0) + len(e.kernels)
+    return us, launches
+
+
+def profile_dien(device, steps: int = 5) -> dict:
+    """The DIEN step at bench_dien width (f32 tables): synced step time
+    (``float(loss)`` each step), unsynced step time and the host's enqueue
+    time, then ``torch.profiler`` over ``steps`` steps: kernel launches per
+    step, device busy time by part of the model and by kernel name."""
+    train, _ = sequence_data()
+    model = _sequence_model(DIEN, device)
+    loss_fn, eval_fn = make_aux_loss_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED),
+                      eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    batches = batch_iterator(train, BST_BATCH, seed=SEED, epochs=None)
+    stamps = []
+    state, _ = trainer.fit(state, batches, 20, log_fn=lambda m: stamps.append(time.perf_counter()))
+    synced = float(np.median(np.diff(stamps)[-10:]) * 1e3)
+    quiet = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=10**9, eval_every=0, seed=SEED),
+                    eval_fn, device=device)
+    qstate = state  # the same model and optimizer, on from step 20
+    qstate, _ = quiet.fit(qstate, batches, 3)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qstate, _ = quiet.fit(qstate, batches, 10)
+    enqueue = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    unsynced = (time.perf_counter() - t0) / 10 * 1e3
+    handles = _install_marks(model, qstate.optimizer)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _mark("glue")
+        qstate, _ = quiet.fit(qstate, batches, steps)
+        torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    first = min(e.time_range.start for e in kernels)
+    last = max(e.time_range.end for e in kernels)
+    part_us, part_launches = _busy_by_part(events)
+    top_kernels = sorted(by_name.items(), key=lambda x: -x[1])[:12]
+    per_step = lambda d: {n: v / steps for n, v in sorted(d.items())}  # noqa: E731
+    return dict(steps=steps, batch=BST_BATCH, history=BST_T,
+                synced_ms_per_step=synced, unsynced_ms_per_step=unsynced,
+                host_enqueue_ms_per_step=enqueue,
+                device_busy_ms_per_step=busy_us / steps / 1e3,
+                device_span_ms_per_step=(last - first) / steps / 1e3,
+                device_idle_share=1.0 - busy_us / max(last - first, 1e-9),
+                launches_per_step=len(kernels) / steps,
+                parts_ms_per_step={n: v / 1e3 for n, v in per_step(part_us).items()},
+                parts_launches_per_step=per_step(part_launches),
+                parts_attributed_share=sum(part_us.values()) / max(busy_us, 1e-9),
+                top_kernels_ms_per_step={n: t / steps / 1e3 for n, t in top_kernels})
+
+
 # The forward's register limits (csrc/flash_attention.cu), each with its
 # entry and the phase k2 shape of a main path that the limit governs
 FWD_OCCUPANCY = (
@@ -885,10 +1340,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    if sys.argv[1:] in (["--profile-bst"], ["--fwd-occupancy"]):
+    if sys.argv[1:] in (["--profile-bst"], ["--profile-dien"], ["--fwd-occupancy"]):
         smi = phase_device()
         if sys.argv[1] == "--profile-bst":
             emit("profile_bst", **profile_bst(device))
+        elif sys.argv[1] == "--profile-dien":
+            phase_build()
+            emit("profile_dien", **profile_dien(device))
         else:
             emit("fwd_occupancy", **fwd_occupancy(device))
         print(smi, flush=True)
@@ -899,12 +1357,14 @@ def main() -> int:
         }}), flush=True)
         return 0
     if sys.argv[1:]:
-        print(f"usage: {sys.argv[0]} [--profile-bst | --fwd-occupancy]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--profile-bst | --profile-dien | --fwd-occupancy]",
+              file=sys.stderr)
         return 2
     smi = phase_device()
     phase_build()
-    bst_train, bst_test = bst_data()
-    k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in bst_train.items()})
+    seq_train, seq_test = sequence_data()
+    bst_train, bst_test = without_negatives(seq_train), without_negatives(seq_test)
+    k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in seq_train.items()})
     k2_cases = k2_shapes(device, bst_train)
     k2 = {}
     for key, (case, valid, head_dim, route) in k2_cases.items():
@@ -916,6 +1376,11 @@ def main() -> int:
     bst_launches = phase_bst_train(device, bst_train, bst_test)
     long_launches = phase_bst_long(device)
     phase_bst_card_cpu(device)
+    dien_k1 = phase_dien_train(device, seq_train, seq_test)
+    din_k1 = phase_din_train(device, seq_train)
+    dien_long_k1 = phase_dien_long(device)
+    phase_dien_card_cpu(device)
+    cli_k1 = phase_dien_cli()
     print(smi, flush=True)
     main_case = k1["bf16_order"]  # the bf16 table's backward: bf16 cotangent + order
     kernels = [{
@@ -923,8 +1388,12 @@ def main() -> int:
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        # DLRM run + the two BST runs
-        "launches": dlrm_k1 + bst_launches["k1"] + long_launches["k1"],
+        # DLRM run + the two BST runs + the DIEN, DIN, long-DIEN and CLI runs
+        "launches": (dlrm_k1 + bst_launches["k1"] + long_launches["k1"] + dien_k1 + din_k1
+                     + dien_long_k1 + cli_k1),
+        "launches_by_path": dict(dlrm=dlrm_k1, bst=bst_launches["k1"], bst_long=long_launches["k1"],
+                                 dien=dien_k1, din=din_k1, dien_long=dien_long_k1,
+                                 dien_cli=cli_k1),
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -935,6 +1404,10 @@ def main() -> int:
         # BST's item-history backward (f32 + order, 102,400 ids into [400,000, 18])
         "bst_item_history_ms": k1["bst_item_history_f32_order"]["ms"],
         "bst_item_history_plain_ms": k1["bst_item_history_f32_order"]["plain_ms"],
+        # DIEN's negative-history and shared_gather backwards into [400,000, 18]
+        **{f"{case}_{key}": k1[f"{case}_order"][key]
+           for case in ("dien_neg_history_f32", "dien_neg_history_bf16", "dien_shared_gather_f32")
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     # each K2 kernel at the shape of its main path: the fused forward and
     # backward at BST's, the long routes' at the BST run with history 1,000

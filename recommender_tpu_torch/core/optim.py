@@ -93,7 +93,11 @@ class AdamSR(torch.optim.Optimizer):
     ``moment_dtype``), and stochastic-rounded moment and param writes for
     low-precision leaves; f32 leaves take plain Adam. ``step(write_key)``
     takes the param-write key, which the Trainer derives from its step
-    counter. The order of ``params`` fixes each leaf's rounding keys."""
+    counter. The order of ``params`` fixes each leaf's rounding keys.
+
+    ``state_dict()`` is ``{"count", "mu", "nu"}``: the step count, which the
+    moment-rounding keys fold in, and the moments in param order, each in
+    its storage dtype; ``load_state_dict`` copies them back in place."""
 
     def __init__(
         self,
@@ -135,3 +139,24 @@ class AdamSR(torch.optim.Optimizer):
             n.copy_(n_new)
             p.copy_(p_new)
         self.count += 1
+
+    def _moments(self, which: str) -> list[torch.Tensor]:
+        return [self.state[p][which] for p in self.param_groups[0]["params"]]
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self._moments("mu"), "nu": self._moments("nu")}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: dict):
+        for which in ("mu", "nu"):
+            own, new = self._moments(which), state_dict[which]
+            if len(own) != len(new):
+                raise ValueError(f"{which}: {len(new)} moments for {len(own)} params")
+            for i, (m, m_new) in enumerate(zip(own, new)):
+                if m.shape != m_new.shape or m.dtype != m_new.dtype:
+                    raise ValueError(
+                        f"{which}[{i}]: {tuple(m_new.shape)} {m_new.dtype} does not fit "
+                        f"{tuple(m.shape)} {m.dtype}"
+                    )
+                m.copy_(m_new)
+        self.count = int(state_dict["count"])

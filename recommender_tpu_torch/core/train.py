@@ -1,4 +1,5 @@
-"""The training engine: step, eval cadence, logging, divergence guard.
+"""The training engine: step, eval cadence, checkpoints, logging, divergence
+guard.
 
 Port of ``recommender_tpu/core/train.py`` for one device. A step is the
 eager PyTorch sequence forward → backward (the embedding gradient through
@@ -13,14 +14,23 @@ stats) take its place, updated by the forward of each train step.
 
 ``TrainConfig`` holds only the fields this engine implements; any other
 field of the JAX config is a ``TypeError`` at construction rather than a
-silently ignored setting. Checkpoints, gradient accumulation, per-path LR
-scales, early stopping and the background prefetcher belong to later
-slices; the split step is a TPU layout workaround and has no counterpart.
+silently ignored setting. Gradient accumulation, per-path LR scales, early
+stopping and the background prefetcher belong to later slices; the split
+step is a TPU layout workaround and has no counterpart.
+
+Checkpoints (``save``, ``restore``, ``TrainConfig.checkpoint_dir``): one
+``torch.save`` file per step number, ``step_<number>.pt``, holding the
+model's ``state_dict`` (params and BatchNorm buffers), ``AdamSR``'s moments
+and count, and the step. Every rounding key derives from the seed, the step
+and the count, so a restored run continues bit for bit, bf16 tables
+included.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import re
 import time
 from typing import Callable, Iterable, Optional
 
@@ -56,6 +66,9 @@ class TrainConfig:
     # Adam moment storage dtype: None = the param's own dtype;
     # "float32" = full-precision moments.
     moment_dtype: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0  # 0 = only on demand
+    max_to_keep: int = 3
 
     def __post_init__(self):
         if callable(self.learning_rate):
@@ -173,6 +186,8 @@ class Trainer:
                 # eval wall-clock must not pollute the throughput window
                 t0 = time.perf_counter()
                 window_examples = 0
+            if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                self.save(state)
         return state, history
 
     @torch.no_grad()
@@ -218,11 +233,61 @@ class Trainer:
             )
         return out
 
+    # ------------------------------------------------------------ checkpoints
+    def _checkpoints(self) -> list[tuple[int, str]]:
+        """(step, path) of every checkpoint in the directory, oldest first."""
+        root = self.cfg.checkpoint_dir
+        if not root:
+            raise ValueError("no checkpoint_dir configured")
+        if not os.path.isdir(root):
+            return []
+        found = []
+        for name in os.listdir(root):
+            m = _CHECKPOINT_NAME.fullmatch(name)
+            if m:
+                found.append((int(m.group(1)), os.path.join(root, name)))
+        return sorted(found)
+
+    def save(self, state: TrainState) -> str:
+        """Write the checkpoint of ``state.step`` (to a temporary name, then
+        renamed) and prune all but the newest ``max_to_keep``."""
+        kept = self._checkpoints()  # raises without a checkpoint_dir
+        os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+        path = os.path.join(self.cfg.checkpoint_dir, f"step_{state.step}.pt")
+        payload = {
+            "step": state.step,
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+        }
+        tmp = f"{path}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        kept = sorted({*kept, (state.step, path)})
+        for _, old in kept[: max(len(kept) - self.cfg.max_to_keep, 0)]:
+            os.remove(old)
+        return path
+
+    def restore(self, state_like: TrainState) -> TrainState:
+        """Load the newest checkpoint into ``state_like``'s model and
+        optimizer, in place, and return the state at its step;
+        ``state_like`` unchanged where the directory holds none."""
+        found = self._checkpoints()
+        if not found:
+            return state_like
+        _, path = found[-1]
+        payload = torch.load(path, map_location=self.device, weights_only=True)
+        state_like.model.load_state_dict(payload["model"], strict=True)
+        state_like.optimizer.load_state_dict(payload["optimizer"])
+        return dataclasses.replace(state_like, step=int(payload["step"]))
+
     def put_batch(self, batch: dict) -> dict:
         """Copy a host (numpy) batch to the trainer's device."""
         return {
             k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()
         }
+
+
+_CHECKPOINT_NAME = re.compile(r"step_(\d+)\.pt")
 
 
 def _batch_size(batch: dict) -> int:

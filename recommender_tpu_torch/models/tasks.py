@@ -1,7 +1,7 @@
 """Task wrappers: bind a model to the Trainer's (loss_fn, eval_fn) protocol.
 
 Port of ``recommender_tpu/models/tasks.py`` (``init_model``,
-``make_ctr_task``). The JAX functions take ``(params, model_state, batch,
+``make_ctr_task``, ``make_aux_loss_task``). The JAX functions take ``(params, model_state, batch,
 rng, train)``; a torch module holds its own parameters, and its mutable
 state (BatchNorm's running stats, flax's ``batch_stats``) as buffers that
 its forward updates in ``train()`` mode. The models of the port use no
@@ -48,6 +48,23 @@ def make_ctr_task(model: nn.Module) -> tuple[Callable, Callable]:
     def eval_fn(batch):
         model.eval()
         prob = model(batch)
+        return prob, batch["label"]
+
+    return loss_fn, eval_fn
+
+
+def make_aux_loss_task(model: nn.Module, aux_weight: float = 1.0) -> tuple[Callable, Callable]:
+    """CTR where model(batch) → (prob [B], per-example aux loss [B]) — DIEN."""
+
+    def loss_fn(batch, train):
+        model.train(train)
+        prob, aux_loss = model(batch)
+        per_ex = binary_cross_entropy(prob, batch["label"]) + aux_weight * aux_loss
+        return per_ex, {"aux_loss": torch.mean(aux_loss.detach())}
+
+    def eval_fn(batch):
+        model.eval()
+        prob, _ = model(batch)
         return prob, batch["label"]
 
     return loss_fn, eval_fn

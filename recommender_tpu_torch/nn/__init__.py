@@ -1,17 +1,33 @@
 from recommender_tpu_torch.nn.interactions import DotInteraction, fm_cross
-from recommender_tpu_torch.nn.losses import bce_with_logits, binary_cross_entropy
+from recommender_tpu_torch.nn.losses import (
+    bce_with_logits,
+    binary_cross_entropy,
+    masked_auxiliary_loss,
+)
 from recommender_tpu_torch.nn.mlp import MLP, BatchNorm
-from recommender_tpu_torch.nn.sequence import masked_mean_pool
+from recommender_tpu_torch.nn.recurrent import AUGRU, GRU
+from recommender_tpu_torch.nn.sequence import (
+    AuxiliaryNet,
+    DIENAttention,
+    LocalActivationUnit,
+    masked_mean_pool,
+)
 from recommender_tpu_torch.nn.transformer import DenseGeneral, TransformerBlock
 
 __all__ = [
+    "AUGRU",
+    "AuxiliaryNet",
     "BatchNorm",
+    "DIENAttention",
     "DenseGeneral",
     "DotInteraction",
+    "GRU",
+    "LocalActivationUnit",
     "MLP",
     "TransformerBlock",
     "bce_with_logits",
     "binary_cross_entropy",
     "fm_cross",
+    "masked_auxiliary_loss",
     "masked_mean_pool",
 ]

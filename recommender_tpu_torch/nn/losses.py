@@ -1,6 +1,7 @@
-"""Losses: port of ``recommender_tpu/nn/losses.py`` (the BCE pair).
+"""Losses: port of ``recommender_tpu/nn/losses.py`` (the BCE pair and DIEN's
+masked auxiliary loss).
 
-Both return **per-example** losses, so callers control batch scaling.
+All return **per-example** losses, so callers control batch scaling.
 """
 from __future__ import annotations
 
@@ -22,3 +23,18 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.clamp(logits, min=0.0) - logits * labels + torch.log1p(
         torch.exp(-torch.abs(logits))
     )
+
+
+def masked_auxiliary_loss(
+    pos_logits: torch.Tensor,  # [B, T-1]
+    neg_logits: torch.Tensor,  # [B, T-1]
+    mask: torch.Tensor,  # [B, T-1] (1 = real step)
+) -> torch.Tensor:
+    """DIEN auxiliary loss: per-example mean over valid steps of
+    BCE(pos→1) and BCE(neg→0). Returns [B]; a row with no valid step gives 0
+    (the denominator is ``max(2·Σmask, 1)``)."""
+    m = mask.to(torch.float32)
+    pos_l = bce_with_logits(pos_logits, torch.ones_like(pos_logits)) * m
+    neg_l = bce_with_logits(neg_logits, torch.zeros_like(neg_logits)) * m
+    denom = torch.clamp(torch.sum(m, dim=-1) * 2.0, min=1.0)
+    return (torch.sum(pos_l, dim=-1) + torch.sum(neg_l, dim=-1)) / denom

@@ -47,6 +47,16 @@ from recommender_tpu_torch.models import BST, init_model, make_ctr_task
 from recommender_tpu_torch.nn import TransformerBlock
 from recommender_tpu_torch.nn.losses import binary_cross_entropy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These models are tiny: one intra-op thread runs them several times
+    faster than a pool does, and test workers do not fight over cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SMALL = dict(item_vocab=200, cat_vocab=20, item_dim=8, cat_dim=8, mlp_units=(32, 16, 1))
 T, BATCH = 12, 64
 
@@ -235,7 +245,7 @@ def test_history_longer_than_the_position_table_raises():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(shared_gather=True), dict(partition="model"), dict(lookup_mode="psum"),
+    [dict(lookup_mode="a2a"), dict(partition="model"), dict(lookup_mode="psum"),
      dict(mesh=object())],
 )
 def test_unported_options_raise(kw):

@@ -63,6 +63,8 @@ def test_port_imports_without_jax():
         "import recommender_tpu_torch.core.optim, recommender_tpu_torch.data\n"
         "import recommender_tpu_torch.models, recommender_tpu_torch.nn\n"
         "import recommender_tpu_torch.ops, recommender_tpu_torch.embedding\n"
+        "import recommender_tpu_torch.cli.train_dien, recommender_tpu_torch.data.amazon\n"
+        "import recommender_tpu_torch.core.tensorboard\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'recommender_tpu')]\n"
         "assert not bad, bad\n"
