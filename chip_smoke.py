@@ -23,7 +23,11 @@ random weights drawn from seed 0:
   bf16 tables; DIN at the same width; DIEN at history 1,000 (batch 128) with
   and without rematerialized recurrences; and the
   ``recommender_tpu_torch.cli.train_dien`` entry point with a checkpoint and
-  a resume.
+  a resume;
+* the CTR family through ``recommender_tpu_torch.cli.train_ctr`` at
+  ``bench.py`` width (DLRM with dedup plans off and on, DeepFM, DCN, the
+  .npz shard stream, a resume) and ``recommender_tpu_torch.cli.predict``
+  scoring its checkpoint.
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
@@ -35,7 +39,8 @@ Phases, one JSON line each (k2 one per shape):
 1. device       — the card, its power limit, torch and CUDA versions; TF32 off.
 2. build        — build and load K1 (sorted scatter-add) and K2 (flash
                   attention forward, and backward), one ``nvcc`` per
-                  source, started together.
+                  source, started together, and the host's dedup-plan
+                  library (``make -C native``) beside them.
 3. k1           — K1 against its plain PyTorch version at the DLRM shape
                   (212,992 ids into [1M, 16]): f32 and bf16 rounding, with
                   and without ``order``, with ids >= V; at BST's item and
@@ -46,8 +51,11 @@ Phases, one JSON line each (k2 one per shape):
                   DLRM shape with bf16 + ``order``
                   for the worst skew (every id equal) and its uniform twin
                   (ids uniform in [0, 1M)), whose times must stay within 2x;
-                  bitwise repeatability; kernel and plain times (CUDA
-                  events, median of 25).
+                  the dedup'd lookup's two calls at DLRM b8192 with a bf16
+                  cotangent on a real batch's plan (the segment sum of the
+                  212,992 rows into [U_cap, 16], then the unique rows into
+                  [1M, 16]); bitwise repeatability; kernel and plain times
+                  (CUDA events, median of 25).
 4. k2           — K2 (forward and backward) against ``flash_mha_ref`` at
                   BST's shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a
                   real batch; fused forward and backward), at L 128 (fused)
@@ -98,6 +106,18 @@ Phases, one JSON line each (k2 one per shape):
                   command for half the steps and ``--resume`` for the rest:
                   the final parameters must equal the straight run's bit for
                   bit.
+15. ctr_cli     — ``cli.train_ctr.main`` on the card at ``bench.py`` width
+                  (``CTR_ARGS``): DLRM 100 steps with dedup plans off (K1 once
+                  a step), on (twice), on and off again, the same per-step
+                  losses in each pair, final exact eval AUC > 0.7; DeepFM and DCN 50 steps each; 20
+                  steps of the .npz shard stream with two workers; 80
+                  steps straight against 40 + ``--resume`` 40 (dedup on,
+                  the warmup + cosine schedule): every parameter and moment
+                  bit for bit. Each run's synced ms/step, examples/s and the
+                  host's put and enqueue times.
+16. ctr_predict — ``cli.predict.main`` on the card from the resumed
+                  checkpoint at b8192: its scores equal the restored model's
+                  eval forward on the same batches; examples/s.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -143,9 +163,10 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from recommender_tpu_torch.cli import train_dien
+from recommender_tpu_torch.cli import predict, train_ctr, train_dien
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
-from recommender_tpu_torch.data import SyntheticCTR, SyntheticSequence, batch_iterator
+from recommender_tpu_torch.data import SyntheticCTR, SyntheticSequence, batch_iterator, criteo, dedup
+from recommender_tpu_torch.data.pipeline import with_dedup_plans
 from recommender_tpu_torch.models import (
     BST,
     DIEN,
@@ -242,6 +263,36 @@ DIEN_CLI_ARGS = ("--synthetic", "--model_type", "DIEN", "--history_max_length", 
 # The final exact eval AUC of that run must clear 0.5 by this margin.
 DIEN_CLI_AUC_MARGIN = 0.2
 
+# The CTR family through cli.train_ctr at bench.py width: --synthetic,
+# vocab 1M, D 16, b8192, the table in bf16 with stochastic rounding, a log
+# point (a sync) at every step, 20 held-out batches for the final exact eval.
+CTR_ARGS = ("--synthetic", "--vocab_size", str(VOCAB), "--embedding_size", str(DIM),
+            "--train_batch_size", str(BATCH), "--test_batch_size", str(BATCH),
+            "--eval_batches", str(EVAL_BATCHES), "--embed_dtype", "bf16",
+            "--log_every", "1", "--eval_every", "0")
+CTR_DLRM_STEPS = 100  # with dedup plans off, on, on, off (the host's speed drifts)
+CTR_OTHER_STEPS = 50  # DeepFM, DCN
+CTR_SHARD_STEPS = 20  # the .npz shard stream, two workers
+CTR_SHARDS, CTR_SHARD_ROWS = 4, 5 * BATCH
+CTR_RESUME_STEPS = 80  # straight, against half + --resume half
+CTR_RESUME_ARGS = ("--dedup_lookup", "on", "--lr_schedule", "dlrm", "--warmup_steps", "20",
+                   "--decay_steps", "100", "--log_every", "40")
+# Dedup on against off, per-step losses: tests/test_torch_dedup.py finds
+# the two backwards' gradients equal bit for bit (each id's rows are summed
+# in the same stable sorted order, then each unique row is moved once), so
+# the two runs must take the same steps.
+CTR_DEDUP_LOSS_TOL = 0.0
+# Final exact eval AUC over 0.5: DLRM's as the train phase's; DeepFM's and
+# DCN's after 50 steps set from the first measured run on an H100 80GB
+# HBM3 (700 W): 0.653 and 0.788 (deterministic up to GEMM rounding), so
+# 0.1 and 0.2 leave room without letting a model that learned nothing
+# through.
+CTR_AUC_MARGIN = {"DLRM": 0.2, "DeepFM": 0.1, "DCN": 0.2}
+# cli.predict's scores against the restored model's eval forward on the
+# same batches (the same GEMM shapes, so the same roundings)
+PREDICT_TOL = 1e-6
+PREDICT_ROWS = EVAL_BATCHES * BATCH + 1000  # the last batch padded
+
 # H100 SXM peaks (NVIDIA data sheet, dense), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -312,13 +363,15 @@ def phase_build():
     names = ("sorted_scatter_add", "flash_attention", "flash_attention_bwd")
     cached = {n: _build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per source, together
+        # and the host's dedup-plan library (make -C native) beside them
+        native = pool.submit(dedup.is_available)
         libs = dict(zip(names, pool.map(_build.build, names)))
     for name in names:
         _build.load(name)
     root = _build.BUILD_DIR.parents[1]
     emit("build", libraries={n: str(so.relative_to(root)) for n, so in libs.items()},
-         cached=cached, seconds=time.perf_counter() - t0)
+         cached=cached, dedup_plan_native=native.result(), seconds=time.perf_counter() - t0)
 
 
 def k1_inputs(device):
@@ -431,6 +484,22 @@ def phase_k1(device, seq_batch: dict) -> dict:
     ratio = results["skew_one_id_bf16_order"]["ms"] / results["skew_uniform_bf16_order"]["ms"]
     emit("k1_skew", one_id_over_uniform=ratio, limit=K1_SKEW_RATIO)
     check(ratio <= K1_SKEW_RATIO, f"K1 with one id takes {ratio:.2f}x its uniform-id time")
+    # the dedup'd lookup's backward at DLRM b8192 with a bf16 cotangent, on
+    # the plan of a real batch: the segment sum of the 212,992 rows into
+    # the U_cap unique slots, then the unique rows into the table
+    cat = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(BATCH, seed=1)["cat_features"]
+    (planned,) = with_dedup_plans(iter([{"cat_features": cat}]))
+    plan = {k: torch.from_numpy(v).to(device) for k, v in planned["cat_dedup"].items()}
+    u_cap = plan["uniq"].numel()
+    g = torch.Generator(device=device).manual_seed(SEED)
+    cot = torch.randn((cat.size, DIM), generator=g, device=device).to(torch.bfloat16)
+    _k1_case(results, "dedup_segment_sum_bf16_order", plan["slot"], cot, plan["perm"],
+             torch.float32, cot.index_select(0, plan["perm"].long()).float(), u_cap,
+             u_cap=u_cap)
+    d_uniq = ek.sorted_scatter_add_ref(plan["slot"], cot, u_cap, order=plan["perm"]).to(torch.bfloat16)
+    _k1_case(results, "dedup_uniq_scatter_bf16", plan["uniq"], d_uniq, None, torch.float32,
+             d_uniq.float(), VOCAB, u_cap=u_cap,
+             pad_ids=int((plan["uniq"] >= VOCAB).sum()))
     return results
 
 
@@ -1032,12 +1101,12 @@ def phase_dien_card_cpu(device):
     check(diff <= CARD_CPU_LOSS_TOL, f"DIEN card vs CPU losses differ by {diff}")
 
 
-def _cli_run(args: list[str]):
-    """``train_dien.main(args)`` with its JSON lines captured: the state it
-    returns and the lines."""
+def _cli_run(args: list[str], entry=train_dien.main):
+    """``entry(args)`` (``train_dien.main`` by default) with its JSON lines
+    captured: what it returns and the lines."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        state = train_dien.main(args)
+        state = entry(args)
     return state, [json.loads(line) for line in out.getvalue().splitlines()]
 
 
@@ -1081,6 +1150,192 @@ def phase_dien_cli() -> int:
     check(not differing, f"resumed run differs from the straight run in {differing}")
     check(final == resumed_final, "resumed run's final eval differs")
     return launches
+
+
+@contextlib.contextmanager
+def host_times():
+    """Host clock around each ``Trainer.put_batch`` (the copy to the card)
+    and ``Trainer.train_step`` (forward, backward and optimizer enqueued;
+    with a sync at every log point the queue is empty when a step starts,
+    so this is the host's enqueue time), in ms, while the block runs."""
+    times = {"put": [], "enqueue": []}
+    real = {"put": Trainer.put_batch, "enqueue": Trainer.train_step}
+
+    def timed(key):
+        def fn(self, *args):
+            t0 = time.perf_counter()
+            out = real[key](self, *args)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return fn
+
+    Trainer.put_batch, Trainer.train_step = timed("put"), timed("enqueue")
+    try:
+        yield times
+    finally:
+        Trainer.put_batch, Trainer.train_step = real["put"], real["enqueue"]
+
+
+def _ctr_run(name: str, args: list[str], steps: int, per_step: int) -> dict:
+    """One ``cli.train_ctr.main`` run on the card with a log point at every
+    step: its per-step losses, synced step time (the log lines' window),
+    host put and enqueue times, final eval and K1 launches; checked."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with host_times() as host:
+        state, lines = _cli_run([*args, "--steps", str(steps)], train_ctr.main)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ek.sorted_scatter_add.launches
+    logs = [m for m in lines if "loss" in m]
+    final = lines[-1]
+    timed = slice(-min(TIMED_STEPS, steps - 1), None)
+    step_ms = np.array([BATCH / m["examples_per_s"] * 1e3 for m in logs])[timed]
+    enqueue = np.array(host["enqueue"][:steps])[timed]
+    put = np.array(host["put"][:steps])[timed]
+    out = dict(steps=state.step, losses=[m["loss"] for m in logs],
+               ms_per_step_median=float(np.median(step_ms)),
+               ms_per_step_min=float(step_ms.min()), ms_per_step_max=float(step_ms.max()),
+               examples_per_s=BATCH / (float(np.median(step_ms)) / 1e3),
+               host_enqueue_ms_median=float(np.median(enqueue)),
+               host_put_ms_median=float(np.median(put)),
+               final=final, k1_launches=launches, seconds=seconds,
+               device=str(next(state.model.parameters()).device))
+    emit("ctr_cli", run=name, **out)
+    check(out["device"].startswith("cuda"), f"{name}: the CLI did not run on the card")
+    check(state.step == steps == len(logs), f"{name} took {state.step} steps, wanted {steps}")
+    check(all(math.isfinite(x) for x in out["losses"]), f"non-finite {name} training loss")
+    check(final.get("final") == 1 and final["eval_batches"] == EVAL_BATCHES,
+          f"{name}: final eval line {final}")
+    check(launches == per_step * steps,
+          f"{name}: K1 launched {launches} times in {steps} steps, wanted {per_step} a step")
+    out["state"] = state
+    return out
+
+
+def write_ctr_shards(root) -> None:
+    """``train/`` with CTR_SHARDS .npz shards of CTR_SHARD_ROWS
+    ``SyntheticCTR`` rows in the Criteo shard schema, ``test/`` with one of
+    EVAL_BATCHES batches, and a vocab file (its size only has to fit the
+    table: the rows' ids are already encoded)."""
+    gen = SyntheticCTR(vocab_size=VOCAB, seed=SEED)
+    for part, n, count in (("train", CTR_SHARD_ROWS, CTR_SHARDS), ("test", EVAL_BATCHES * BATCH, 1)):
+        (root / part).mkdir(parents=True)
+        for i in range(count):
+            np.savez(root / part / f"shard_{i:05d}.npz", **gen.sample(n, seed=10 + i + 100 * (part == "test")))
+    criteo.save_vocab({"__miss_0__": 1}, str(root / "vocab.pkl"))
+
+
+def phase_ctr_cli() -> dict:
+    """``cli.train_ctr.main`` as a user calls it (``--device`` at its
+    default, the card) at bench.py width: DLRM with dedup plans off and on,
+    DeepFM, DCN, the .npz shard stream with two workers, and a resume."""
+    root = _build.BUILD_DIR / "ctr_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for name in ("dlrm", "dlrm_dedup", "dlrm_dedup_again", "dlrm_again"):
+        dedup_on = "dedup" in name
+        runs[name] = _ctr_run(name, [*CTR_ARGS, "--model_type", "DLRM",
+                                     "--dedup_lookup", "on" if dedup_on else "off"],
+                              CTR_DLRM_STEPS, 2 if dedup_on else 1)
+    for kind in ("DeepFM", "DCN"):
+        runs[kind.lower()] = _ctr_run(kind.lower(), [*CTR_ARGS, "--model_type", kind],
+                                      CTR_OTHER_STEPS, 1)
+    write_ctr_shards(root / "shards")
+    shard_args = [a for a in CTR_ARGS if a != "--synthetic"]
+    runs["shards"] = _ctr_run("shards", [*shard_args, "--data_dir", str(root / "shards"),
+                                         "--vocab", str(root / "shards" / "vocab.pkl"),
+                                         "--prefetch_workers", "2"], CTR_SHARD_STEPS, 1)
+    dedup_diff = max(abs(a - b) for on, off in (("dlrm_dedup", "dlrm"),
+                                                ("dlrm_dedup_again", "dlrm_again"))
+                     for a, b in zip(runs[on]["losses"], runs[off]["losses"]))
+    aucs = {k: runs[k]["final"]["eval_auc_exact"] for k in ("dlrm", "dlrm_dedup", "deepfm", "dcn")}
+    # dedup on minus off, per pair: the synced step and the host's enqueue
+    dedup_minus_off_ms = {
+        key: [runs[on][key] - runs[off][key] for on, off in
+              (("dlrm_dedup", "dlrm"), ("dlrm_dedup_again", "dlrm_again"))]
+        for key in ("ms_per_step_median", "host_enqueue_ms_median", "host_put_ms_median")}
+    emit("ctr_cli_summary", dedup_on_vs_off_max_loss_diff=dedup_diff,
+         dedup_loss_tolerance=CTR_DEDUP_LOSS_TOL, dedup_minus_off_ms=dedup_minus_off_ms,
+         eval_auc_exact=aucs, auc_margins=CTR_AUC_MARGIN)
+    check(dedup_diff <= CTR_DEDUP_LOSS_TOL, f"dedup on vs off: losses differ by {dedup_diff}")
+    for key, kind in (("dlrm", "DLRM"), ("dlrm_dedup", "DLRM"), ("deepfm", "DeepFM"),
+                      ("dcn", "DCN")):
+        check(aucs[key] > 0.5 + CTR_AUC_MARGIN[kind],
+              f"{key}: eval_auc_exact {aucs[key]} <= 0.5 + {CTR_AUC_MARGIN[kind]}")
+
+    # resume: half the steps, then --resume, against the straight run (dedup
+    # plans on, the warmup + cosine schedule)
+    args = [*CTR_ARGS, "--model_type", "DLRM", *CTR_RESUME_ARGS]
+    half = CTR_RESUME_STEPS // 2
+    reset_counts()
+    straight, lines = _cli_run([*args, "--steps", str(CTR_RESUME_STEPS), "--checkpoint_dir",
+                                str(root / "straight")], train_ctr.main)
+    ckpt = ["--checkpoint_dir", str(root / "resumed")]
+    _cli_run([*args, "--steps", str(half), *ckpt], train_ctr.main)
+    resumed, resumed_lines = _cli_run([*args, "--steps", str(CTR_RESUME_STEPS - half),
+                                       "--resume", *ckpt], train_ctr.main)
+    launches = ek.sorted_scatter_add.launches
+    want, got = straight.model.state_dict(), resumed.model.state_dict()
+    differing = [k for k in want if not torch.equal(want[k], got[k])]
+    moments = straight.optimizer.state_dict(), resumed.optimizer.state_dict()
+    differing += [f"{w}[{i}]" for w in ("mu", "nu")
+                  for i, (a, b) in enumerate(zip(moments[0][w], moments[1][w]))
+                  if not torch.equal(a, b)]
+    files = sorted(f.name for f in (root / "resumed").iterdir())
+    emit("ctr_cli", run="resume", args=args, steps=CTR_RESUME_STEPS, final=lines[-1],
+         resumed_final=resumed_lines[-1], resumed_step=resumed.step, checkpoints=files,
+         k1_launches=launches, tensors_differing_after_resume=differing)
+    check(straight.step == CTR_RESUME_STEPS == resumed.step, "resume step counts")
+    check(files == sorted([f"step_{half}.pt", f"step_{CTR_RESUME_STEPS}.pt"]),
+          f"checkpoints {files}")
+    check(not differing, f"resumed run differs from the straight run in {differing}")
+    check(lines[-1] == resumed_lines[-1], "resumed run's final eval differs")
+    check(launches == 2 * 2 * CTR_RESUME_STEPS, f"resume runs launched K1 {launches} times")
+    runs["resume"] = dict(k1_launches=launches, state=resumed)
+    return runs
+
+
+def phase_ctr_predict(state) -> dict:
+    """``cli.predict.main`` on the card from the resumed run's checkpoint
+    (DLRM, bf16 table) at b8192, against the restored model's eval forward
+    on the same batches, the last one padded as ``score_batches`` pads it."""
+    root = _build.BUILD_DIR / "ctr_cli"
+    rows = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(PREDICT_ROWS, seed=3)
+    np.savez(root / "predict_in.npz", **rows)
+    torch.cuda.synchronize()
+    reset_counts()
+    scores, lines = _cli_run(["--family", "ctr", "--model_type", "DLRM",
+                              "--checkpoint_dir", str(root / "resumed"),
+                              "--vocab_size", str(VOCAB), "--embedding_size", str(DIM),
+                              "--batch_size", str(BATCH), "--input", str(root / "predict_in.npz"),
+                              "--output", str(root / "predict_out.npz")], predict.main)
+    launches = ek.sorted_scatter_add.launches
+    (line,) = lines
+    model = state.model.eval()  # the restored run's model: the checkpoint's weights
+    want = []
+    with torch.no_grad():
+        for s in range(0, PREDICT_ROWS, BATCH):
+            batch = {k: v[s:s + BATCH] for k, v in rows.items()}
+            n = len(batch["label"])
+            batch = {k: np.concatenate([v, np.repeat(v[-1:], BATCH - n, axis=0)])
+                     for k, v in batch.items()}
+            prob = model({k: torch.from_numpy(v).to(state.model.embedding.embedding.device)
+                          for k, v in batch.items()})
+            want.append(prob.cpu().numpy()[:n])
+    want = np.concatenate(want)
+    got = np.load(root / "predict_out.npz")["score"]
+    err = float(np.abs(got - want).max())
+    emit("ctr_predict", rows=PREDICT_ROWS, batch=BATCH, line=line, max_abs_err=err,
+         tolerance=PREDICT_TOL, table_dtype=str(state.model.embedding.embedding.dtype),
+         k1_launches=launches)
+    shutil.rmtree(root, ignore_errors=True)
+    check(got.shape == (PREDICT_ROWS,) and np.isfinite(got).all(), "predict scores' shape")
+    check(np.array_equal(got, scores["score"]), "predict's saved scores differ from its return")
+    check(err <= PREDICT_TOL, f"predict scores off the eval forward by {err}")
+    check(line["step"] == CTR_RESUME_STEPS, f"predict restored step {line['step']}")
+    return dict(line=line, k1_launches=launches)
 
 
 # kernel-name fragments for the profile's parts, matched in this order
@@ -1381,6 +1636,16 @@ def main() -> int:
     dien_long_k1 = phase_dien_long(device)
     phase_dien_card_cpu(device)
     cli_k1 = phase_dien_cli()
+    t0 = time.perf_counter()
+    ctr = phase_ctr_cli()
+    ctr_predict = phase_ctr_predict(ctr["resume"]["state"])
+    emit("ctr_phases", seconds=time.perf_counter() - t0)
+    ctr_k1 = {"ctr_cli": ctr["dlrm"]["k1_launches"] + ctr["dlrm_again"]["k1_launches"],
+              "ctr_cli_dedup": (ctr["dlrm_dedup"]["k1_launches"]
+                                + ctr["dlrm_dedup_again"]["k1_launches"]),
+              "deepfm": ctr["deepfm"]["k1_launches"], "dcn": ctr["dcn"]["k1_launches"],
+              "ctr_shards": ctr["shards"]["k1_launches"],
+              "ctr_resume": ctr["resume"]["k1_launches"], "ctr_predict": ctr_predict["k1_launches"]}
     print(smi, flush=True)
     main_case = k1["bf16_order"]  # the bf16 table's backward: bf16 cotangent + order
     kernels = [{
@@ -1389,11 +1654,12 @@ def main() -> int:
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         # DLRM run + the two BST runs + the DIEN, DIN, long-DIEN and CLI runs
+        # + the CTR entry points' runs
         "launches": (dlrm_k1 + bst_launches["k1"] + long_launches["k1"] + dien_k1 + din_k1
-                     + dien_long_k1 + cli_k1),
+                     + dien_long_k1 + cli_k1 + sum(ctr_k1.values())),
         "launches_by_path": dict(dlrm=dlrm_k1, bst=bst_launches["k1"], bst_long=long_launches["k1"],
                                  dien=dien_k1, din=din_k1, dien_long=dien_long_k1,
-                                 dien_cli=cli_k1),
+                                 dien_cli=cli_k1, **ctr_k1),
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1407,6 +1673,11 @@ def main() -> int:
         # DIEN's negative-history and shared_gather backwards into [400,000, 18]
         **{f"{case}_{key}": k1[f"{case}_order"][key]
            for case in ("dien_neg_history_f32", "dien_neg_history_bf16", "dien_shared_gather_f32")
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        # the dedup'd lookup's backward at DLRM b8192 (bf16 cotangent): the
+        # segment sum into [U_cap, 16], then the unique rows into [1M, 16]
+        **{f"{case}_{key}": k1[case][key]
+           for case in ("dedup_segment_sum_bf16_order", "dedup_uniq_scatter_bf16")
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     # each K2 kernel at the shape of its main path: the fused forward and

@@ -6,29 +6,37 @@ sits at the same relative path (``recommender_tpu/ops/rounding.py`` ↔
 reference; the port never imports it (nor jax, flax or optax).
 
 Slice 1 covers DLRM training at ``bench.py`` width, slice 2 BST training
-at ``benchmarks/bench_models.py::bench_bst`` width, a later slice the DIN/DIEN
-family through the ``cli.train_dien`` entry point with checkpoint and
-resume:
+at ``benchmarks/bench_models.py::bench_bst`` width, later slices the
+DIN/DIEN family through the ``cli.train_dien`` entry point with checkpoint
+and resume, and the CTR family (DLRM, DeepFM, DCN) through ``cli.train_ctr``
+and ``cli.predict``:
 
-* ``cli``       — ``train_dien`` (BASE / DIN / DIEN / BST) and the shared
-                  flags, logger and trainer bootstrap (``common``).
+* ``cli``       — ``train_dien`` (BASE / DIN / DIEN / BST), ``train_ctr``
+                  (DLRM / DeepFM / DCN), ``predict`` (scores a
+                  checkpoint) and the shared flags, logger and trainer
+                  bootstrap (``common``).
 * ``data``      — ``SyntheticCTR``, ``SyntheticSequence``,
-                  ``batch_iterator`` and the Amazon Books pipeline
-                  (numpy copies).
-* ``ops``       — stochastic rounding; the embedding lookup whose backward
-                  is the hand-written CUDA sorted scatter-add (K1); flash
-                  attention, hand-written in CUDA (K2).
+                  ``batch_iterator``, the prefetcher, the ordered
+                  interleave, dedup plans, the Criteo shards and the
+                  Amazon Books pipeline (numpy copies).
+* ``ops``       — stochastic rounding; the embedding lookups whose
+                  backward is the hand-written CUDA sorted scatter-add
+                  (K1), once, or twice with a dedup plan; flash attention,
+                  hand-written in CUDA (K2).
 * ``embedding`` — the replicated ``Embedding`` table.
 * ``nn``        — ``MLP`` (with flax's input ``BatchNorm``),
-                  ``DotInteraction``, ``fm_cross``, the BCE and masked
-                  auxiliary losses, ``masked_mean_pool``,
+                  ``DotInteraction``, ``fm_cross``, ``CrossNetwork``, the
+                  BCE and masked auxiliary losses, ``masked_mean_pool``,
                   ``LocalActivationUnit``, ``AuxiliaryNet``,
                   ``DIENAttention``, the masked ``GRU`` and ``AUGRU``,
-                  ``TransformerBlock``.
-* ``models``    — ``DLRM``, ``SequenceBase``, ``BaseModel``, ``DIN``,
-                  ``DIEN``, ``BST`` and the task wrappers.
+                  ``TransformerBlock``, the LR schedule.
+* ``models``    — ``DLRM``, ``DeepFM``, ``DCN``, ``SequenceBase``,
+                  ``BaseModel``, ``DIN``, ``DIEN``, ``BST`` and the task
+                  wrappers.
+* ``retrieval`` — batch scoring for ``cli.predict``.
 * ``core``      — SR-Adam, streaming metrics, the single-device ``Trainer``
-                  with checkpoints, the TensorBoard event writer.
+                  with checkpoints, early stopping and a prefetcher, the
+                  TensorBoard event writer.
 * ``convert``   — flax params and ``batch_stats`` → the port's ``state_dict``.
 
 Divergences from the JAX package are listed in ``PARITY.md`` beside this

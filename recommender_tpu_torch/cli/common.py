@@ -109,6 +109,7 @@ def build_trainer(args, loss_fn, eval_fn=None, *, device) -> Trainer:
         checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every,
         seed=args.seed,
+        early_stop_patience=getattr(args, "early_stop_patience", 0),
     )
     return Trainer(loss_fn, cfg, eval_fn, device=device)
 

@@ -24,7 +24,7 @@ seed, step and leaf both packages draw the same rounding noise.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,14 +95,20 @@ class AdamSR(torch.optim.Optimizer):
     takes the param-write key, which the Trainer derives from its step
     counter. The order of ``params`` fixes each leaf's rounding keys.
 
+    ``lr`` is a float or a schedule, a callable of the update count that
+    returns a float (``nn.schedules``): as optax's
+    ``scale_by_learning_rate(schedule)``, it is evaluated at the count
+    before this update, from 0.
+
     ``state_dict()`` is ``{"count", "mu", "nu"}``: the step count, which the
-    moment-rounding keys fold in, and the moments in param order, each in
-    its storage dtype; ``load_state_dict`` copies them back in place."""
+    moment-rounding keys and a schedule read, and the moments in param
+    order, each in its storage dtype; ``load_state_dict`` copies them back
+    in place."""
 
     def __init__(
         self,
         params,
-        lr: float = 1e-3,
+        lr: float | Callable[[int], float] = 1e-3,
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
@@ -132,7 +138,8 @@ class AdamSR(torch.optim.Optimizer):
         upd, new_mu, new_nu = scale_by_adam_sr(
             grads, mu, nu, self.count, group["b1"], group["b2"], group["eps"], self.seed
         )
-        upd = [-group["lr"] * u for u in upd]  # optax.scale_by_learning_rate
+        lr = group["lr"](self.count) if callable(group["lr"]) else group["lr"]
+        upd = [-lr * u for u in upd]  # optax.scale_by_learning_rate
         new_params = apply_updates_sr(params, upd, write_key)
         for p, m, n, m_new, n_new, p_new in zip(params, mu, nu, new_mu, new_nu, new_params):
             m.copy_(m_new)

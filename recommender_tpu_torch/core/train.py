@@ -14,8 +14,14 @@ stats) take its place, updated by the forward of each train step.
 
 ``TrainConfig`` holds only the fields this engine implements; any other
 field of the JAX config is a ``TypeError`` at construction rather than a
-silently ignored setting. Gradient accumulation, per-path LR scales, early
-stopping and the background prefetcher belong to later slices; the split
+silently ignored setting. ``learning_rate`` may be a schedule (a callable
+of the update count, ``nn.schedules``). Early stopping follows JAX's
+``_fit_loop``: after ``early_stop_patience`` evals without an improvement
+of ``early_stop_metric`` the loop stops, and with a ``checkpoint_dir`` a
+checkpoint is written at each improvement only. ``fit`` reads the stream
+through a background ``data.pipeline.Prefetcher`` (``prefetch`` batches
+ahead; the copy to the device stays on the calling thread). Gradient
+accumulation and per-path LR scales belong to later slices; the split
 step is a TPU layout workaround and has no counterpart.
 
 Checkpoints (``save``, ``restore``, ``TrainConfig.checkpoint_dir``): one
@@ -50,16 +56,22 @@ from recommender_tpu_torch.core.metrics import (
     mean_update,
 )
 from recommender_tpu_torch.core.optim import AdamSR
+from recommender_tpu_torch.data.pipeline import Prefetcher
 from recommender_tpu_torch.nn.losses import binary_cross_entropy
 from recommender_tpu_torch.ops.rounding import fold_in, prng_key
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    learning_rate: float = 1e-3
+    learning_rate: float | Callable[[int], float] = 1e-3
     log_every: int = 100
     eval_every: int = 1000
     seed: int = 0
+    # early stopping on an eval metric: 0 = disabled; with a checkpoint_dir,
+    # checkpoints are written only at an improvement (best-only)
+    early_stop_patience: int = 0
+    early_stop_metric: str = "eval_auc"
+    early_stop_mode: str = "max"  # any other value minimizes, as in JAX
     # Raise TrainingDiverged on a NaN/Inf loss at a log point (where the
     # loss is fetched to the host anyway, so it costs nothing).
     nan_guard: bool = True
@@ -69,10 +81,6 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # 0 = only on demand
     max_to_keep: int = 3
-
-    def __post_init__(self):
-        if callable(self.learning_rate):
-            raise TypeError("learning-rate schedules are not ported yet; pass a float")
 
 
 @dataclasses.dataclass
@@ -150,11 +158,30 @@ class Trainer:
         eval_iter_fn: Optional[Callable[[], Iterable]] = None,
         eval_batches: int = 0,
         log_fn: Optional[Callable[[dict], None]] = None,
+        prefetch: int = 2,
     ) -> tuple[TrainState, list[dict]]:
+        """``steps`` train steps from ``train_iter`` (host batches), with
+        logs, evals, checkpoints and early stopping at the configured
+        cadences. ``prefetch`` > 0 reads the stream that many batches ahead
+        in a background thread, closed on the way out; 0 reads it here."""
+        prefetcher = None
+        if prefetch:
+            prefetcher = Prefetcher(train_iter, size=prefetch)
+            train_iter = prefetcher
+        try:
+            return self._fit_loop(state, train_iter, steps, eval_iter_fn, eval_batches, log_fn)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+
+    def _fit_loop(self, state, train_iter, steps, eval_iter_fn, eval_batches, log_fn):
         cfg = self.cfg
         history: list[dict] = []
         t0 = time.perf_counter()
         window_examples = 0
+        best = None
+        stale_evals = 0
+        sign = 1.0 if cfg.early_stop_mode == "max" else -1.0
         for i, batch in enumerate(train_iter):
             if i >= steps:
                 break
@@ -186,6 +213,18 @@ class Trainer:
                 # eval wall-clock must not pollute the throughput window
                 t0 = time.perf_counter()
                 window_examples = 0
+                if cfg.early_stop_patience:
+                    value = sign * ev.get(cfg.early_stop_metric, float("-inf"))
+                    if best is None or value > best:
+                        best = value
+                        stale_evals = 0
+                        if cfg.checkpoint_dir:
+                            self.save(state)  # best-only checkpointing
+                    else:
+                        stale_evals += 1
+                        if stale_evals >= cfg.early_stop_patience:
+                            history.append({"early_stopped": True, "step": step})
+                            break
             if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                 self.save(state)
         return state, history
@@ -281,9 +320,12 @@ class Trainer:
         return dataclasses.replace(state_like, step=int(payload["step"]))
 
     def put_batch(self, batch: dict) -> dict:
-        """Copy a host (numpy) batch to the trainer's device."""
+        """Copy a host (numpy) batch to the trainer's device; nested dicts
+        (a dedup plan, ``batch["cat_dedup"]``) are copied entry by entry."""
         return {
-            k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()
+            k: self.put_batch(v) if isinstance(v, dict)
+            else torch.as_tensor(np.asarray(v)).to(self.device)
+            for k, v in batch.items()
         }
 
 
@@ -291,5 +333,7 @@ _CHECKPOINT_NAME = re.compile(r"step_(\d+)\.pt")
 
 
 def _batch_size(batch: dict) -> int:
-    first = next(iter(batch.values()), None)
+    """Rows of the batch: the leading dim of its first top-level array (a
+    nested plan's arrays are per id, not per row)."""
+    first = next((v for v in batch.values() if not isinstance(v, dict)), None)
     return int(first.shape[0]) if first is not None else 0

@@ -4,9 +4,10 @@ Port of ``recommender_tpu/embedding/table.py::Embedding``, replicated tables
 only. The table is one ``[vocab_size, features]`` parameter named
 ``embedding`` (the flax param name) in ``param_dtype`` (f32 or bf16). Every
 lookup goes through ``ops.embedding_kernels.embedding_lookup``, whose
-backward is the sorted scatter-add kernel. Row-sharded tables
-(``partition``), the psum / all-to-all exchanges (``lookup_mode``) and
-dedup plans are later slices and raise ``NotImplementedError``.
+backward is the sorted scatter-add kernel, or, with a dedup plan, through
+``embedding_lookup_dedup``, whose backward calls that kernel twice.
+Row-sharded tables (``partition``) and the psum / all-to-all exchanges
+(``lookup_mode``) are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from recommender_tpu_torch.ops.embedding_kernels import embedding_lookup
+from recommender_tpu_torch.ops.embedding_kernels import (
+    embedding_lookup,
+    embedding_lookup_dedup,
+)
 
 
 class Embedding(nn.Module):
@@ -59,7 +63,11 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor, dedup_plan: Optional[dict] = None):
         """``[*ids.shape]`` int ids → ``[*ids.shape, features]`` rows in the
-        table dtype."""
+        table dtype. ``dedup_plan`` ``{"perm", "slot", "uniq"}`` (int32
+        tensors, ``data.pipeline.with_dedup_plans``) takes the dedup'd
+        backward."""
         if dedup_plan is not None:
-            raise NotImplementedError("dedup-plan lookups are not ported yet")
+            return embedding_lookup_dedup(
+                self.embedding, ids, dedup_plan["perm"], dedup_plan["slot"], dedup_plan["uniq"]
+            )
         return embedding_lookup(self.embedding, ids)

@@ -1,3 +1,4 @@
+from recommender_tpu_torch.nn.cross import CrossNetwork
 from recommender_tpu_torch.nn.interactions import DotInteraction, fm_cross
 from recommender_tpu_torch.nn.losses import (
     bce_with_logits,
@@ -6,6 +7,7 @@ from recommender_tpu_torch.nn.losses import (
 )
 from recommender_tpu_torch.nn.mlp import MLP, BatchNorm
 from recommender_tpu_torch.nn.recurrent import AUGRU, GRU
+from recommender_tpu_torch.nn.schedules import dlrm_warmup_cosine
 from recommender_tpu_torch.nn.sequence import (
     AuxiliaryNet,
     DIENAttention,
@@ -18,6 +20,7 @@ __all__ = [
     "AUGRU",
     "AuxiliaryNet",
     "BatchNorm",
+    "CrossNetwork",
     "DIENAttention",
     "DenseGeneral",
     "DotInteraction",
@@ -27,6 +30,7 @@ __all__ = [
     "TransformerBlock",
     "bce_with_logits",
     "binary_cross_entropy",
+    "dlrm_warmup_cosine",
     "fm_cross",
     "masked_auxiliary_loss",
     "masked_mean_pool",

@@ -9,13 +9,24 @@ from torch import nn
 
 
 def fm_cross(embeddings: torch.Tensor) -> torch.Tensor:
-    """FM 2nd-order term. ``embeddings``: [B, F, D] → [B].
+    """FM 2nd-order term. ``embeddings``: [B, F, D] → [B], in their dtype.
 
     0.5 * sum_d ((sum_f e)^2 - sum_f e^2): O(B·F·D), no pairwise matmul.
+
+    Computed in f32 and rounded to a bf16 input's dtype where the compiled
+    JAX function rounds: after each sum over an axis and after the square of
+    the sum. The square that feeds a sum and the difference stay f32, as
+    they do inside XLA's fusions. For f32 inputs every rounding is a no-op.
     """
-    sum_sq = torch.square(torch.sum(embeddings, dim=1))  # [B, D]
-    sq_sum = torch.sum(torch.square(embeddings), dim=1)  # [B, D]
-    return 0.5 * torch.sum(sum_sq - sq_sum, dim=1)  # [B]
+    dt = embeddings.dtype
+
+    def rounded(x):
+        return x.to(dt).to(torch.float32)
+
+    x = embeddings.to(torch.float32)
+    sum_sq = rounded(torch.square(rounded(torch.sum(x, dim=1))))  # [B, D]
+    sq_sum = rounded(torch.sum(torch.square(x), dim=1))  # [B, D]
+    return (0.5 * torch.sum(sum_sq - sq_sum, dim=1)).to(dt)  # [B]
 
 
 class DotInteraction(nn.Module):

@@ -8,6 +8,10 @@ JAX package's other backward routes (the padded-width XLA scatter and the
 row and volume gates that choose between routes) exist for the TPU's lane
 width and are not ported.
 
+``embedding_lookup_dedup`` is the JAX package's dedup'd lookup: its
+backward follows a host-precomputed plan with two kernel calls, a segment
+sum into the batch's unique ids and a scatter of those rows into the table.
+
 The kernel runs in two passes, so that its time follows the bytes it moves
 and not the longest run of equal ids. Pass 1 cuts the N sorted positions
 into chunks of a fixed size (``_geometry``) and sums, one block per chunk,
@@ -221,3 +225,49 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` ([*ids.shape, D]) whose table gradient is computed by
     the sorted scatter-add kernel."""
     return _EmbeddingLookup.apply(table, ids)
+
+
+class _EmbeddingLookupDedup(torch.autograd.Function):
+    """``index_select`` gather forward; the backward follows a host dedup
+    plan (``data.dedup``) with two scatter-add kernel calls: a segment sum
+    of the cotangent rows into their unique slots, then a scatter of the
+    unique rows into the table. Nothing is sorted on the device."""
+
+    @staticmethod
+    def forward(ctx, table, ids, perm, slot, uniq):
+        ctx.save_for_backward(perm, slot, uniq)
+        ctx.vocab = table.shape[0]
+        ctx.table_dtype = table.dtype
+        flat = table.index_select(0, ids.reshape(-1))
+        return flat.reshape(*ids.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, cot):
+        perm, slot, uniq = ctx.saved_tensors
+        cot2 = cot.reshape(-1, cot.shape[-1]).contiguous()
+        d_uniq = sorted_scatter_add(slot, cot2, uniq.shape[0], order=perm)
+        # the unique rows' sums come back in the cotangent's dtype (rounded
+        # to nearest for a bf16 table) before the second scatter, as in JAX
+        grad = sorted_scatter_add(uniq, d_uniq.to(cot2.dtype), ctx.vocab)
+        return grad.to(ctx.table_dtype), None, None, None, None
+
+
+def embedding_lookup_dedup(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    perm: torch.Tensor,
+    slot_sorted: torch.Tensor,
+    uniq: torch.Tensor,
+) -> torch.Tensor:
+    """``table[ids]`` whose table gradient follows a host-precomputed dedup
+    plan (``data.dedup.build_plan``): ``perm`` and ``slot_sorted`` int32
+    [N = ids.numel()], ``uniq`` int32 [U_cap] ascending, padded with ids
+    >= 2^30 (dropped by the kernel). Replicated tables with the whole batch
+    on one device."""
+    n = ids.numel()
+    if perm.shape != (n,) or slot_sorted.shape != (n,) or uniq.dim() != 1:
+        raise ValueError(
+            f"a dedup plan for {n} ids needs perm and slot of shape ({n},) and a 1-D uniq, "
+            f"got {tuple(perm.shape)}, {tuple(slot_sorted.shape)}, {tuple(uniq.shape)}"
+        )
+    return _EmbeddingLookupDedup.apply(table, ids, perm, slot_sorted, uniq)

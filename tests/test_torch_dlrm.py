@@ -146,7 +146,9 @@ def test_unported_options_raise():
         Embedding(10, 4, partition="model")
     with pytest.raises(NotImplementedError):
         Embedding(10, 4, lookup_mode="a2a")
-    with pytest.raises(NotImplementedError):
-        Embedding(10, 4)(torch.zeros(2, dtype=torch.int32), dedup_plan={})
+    # a dedup plan is ported (tests/test_torch_dedup.py); one for other ids is refused
+    plan = {k: torch.zeros(3, dtype=torch.int32) for k in ("perm", "slot", "uniq")}
+    with pytest.raises(ValueError):
+        Embedding(10, 4)(torch.zeros(2, dtype=torch.int32), dedup_plan=plan)
     with pytest.raises(ValueError):
         DLRM(10, embed_dim=8, bottom_units=(32, 16))
