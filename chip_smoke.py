@@ -27,7 +27,12 @@ random weights drawn from seed 0:
 * the CTR family through ``recommender_tpu_torch.cli.train_ctr`` at
   ``bench.py`` width (DLRM with dedup plans off and on, DeepFM, DCN, the
   .npz shard stream, a resume) and ``recommender_tpu_torch.cli.predict``
-  scoring its checkpoint.
+  scoring its checkpoint;
+* MMOE and ESMM at ``benchmarks/bench_models.py::bench_mmoe_large`` width
+  (per-table f32 and bf16 tables, and the stacked table), the
+  ``cli.train_esmm`` entry point with a resume, and ``cli.predict --family
+  esmm``; EGES at ``bench_models.py::bench_eges`` width and the
+  ``cli.train_eges`` entry point (BGE, GES, EGES, per-path update scales).
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
@@ -54,8 +59,13 @@ Phases, one JSON line each (k2 one per shape):
                   the dedup'd lookup's two calls at DLRM b8192 with a bf16
                   cotangent on a real batch's plan (the segment sum of the
                   212,992 rows into [U_cap, 16], then the unique rows into
-                  [1M, 16]); bitwise repeatability; kernel and plain times
-                  (CUDA events, median of 25).
+                  [1M, 16]); MMOE's per-table lookup (8,192 ids into
+                  [100,000, 18], f32 and bf16 cotangents) and its stacked
+                  one (147,456 ids into [1.8M, 18]); EGES's output table
+                  (24,576 ids into [100,000, 128]), cat table (4,096 ids
+                  into [200, 128]) and weight table (4,096 ids into
+                  [100,000, 3]); bitwise repeatability; kernel and plain
+                  times (CUDA events, median of 25).
 4. k2           — K2 (forward and backward) against ``flash_mha_ref`` at
                   BST's shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a
                   real batch; fused forward and backward), at L 128 (fused)
@@ -118,6 +128,28 @@ Phases, one JSON line each (k2 one per shape):
 16. ctr_predict — ``cli.predict.main`` on the card from the resumed
                   checkpoint at b8192: its scores equal the restored model's
                   eval forward on the same batches; examples/s.
+17. mmoe_train  — MMOE at ``bench_models.py::bench_mmoe_large`` width (18
+                  tables of 100,000 x 18, 8 experts 324→200→80, 2 gates,
+                  towers 80→40→1, b8192), 50 steps each with per-table f32
+                  tables (K1 18 a step), per-table bf16 tables with
+                  stochastic rounding, and one stacked [1.8M, 18] f32 table
+                  from the per-table run's init (K1 once a step; the losses
+                  must agree); then 20 ESMM steps. Synced ms/step, the
+                  host's enqueue and put, peak memory.
+18. mt_graph_card_cpu — a small MMOE and a small EGES, 3 steps each from
+                  one init on the card and on the CPU; the losses must agree.
+19. esmm_cli    — ``cli.train_esmm.main`` on the card (``--synthetic``): ESMM,
+                  MMOE and BASE, each with CVR / CTCVR AUC guards; MMOE 80
+                  steps straight against 40 + ``--resume`` 40, bit for bit;
+                  ``cli.predict --family esmm`` on that checkpoint: the three
+                  heads equal the restored model's eval forward.
+20. eges_train  — EGES at ``bench_models.py::bench_eges`` width (100,000
+                  nodes, 2,000,000 edges, D 128, b4096), 50 steps through
+                  ``Trainer.fit`` with the native walk sampler in its
+                  prefetch thread (K1 5 a step); the sampler alone.
+21. eges_cli    — ``cli.train_eges.main`` on the card (``--synthetic``): BGE,
+                  GES, EGES and EGES with ``--shared_lr_scale 0.5``, each
+                  scored by link prediction on intra-community pairs.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -133,6 +165,12 @@ profiler run slows every later launch of the process.
 does the same for the DIEN step (``profile_dien``): launches per step and
 device busy time by part of the model (the two recurrences, forward and
 backward, attention, auxiliary net, embeddings with K1, head, optimizer).
+
+    python3 chip_smoke.py --profile-mt-graph
+
+does the same for the MMOE step at bench_mmoe_large width (per-table f32,
+per-table bf16 + SR, stacked f32) and the EGES step at bench_eges width
+(``profile_mt_graph``).
 
     python3 chip_smoke.py --fwd-occupancy
 
@@ -163,18 +201,34 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from recommender_tpu_torch.cli import predict, train_ctr, train_dien
+from recommender_tpu_torch.cli import predict, train_ctr, train_dien, train_eges, train_esmm
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
-from recommender_tpu_torch.data import SyntheticCTR, SyntheticSequence, batch_iterator, criteo, dedup
+from recommender_tpu_torch.data import (
+    SyntheticCTR,
+    SyntheticMultiTask,
+    SyntheticSequence,
+    batch_iterator,
+    criteo,
+    dedup,
+)
 from recommender_tpu_torch.data.pipeline import with_dedup_plans
+from recommender_tpu_torch.graph import WeightedGraph, native, skipgram_batches
 from recommender_tpu_torch.models import (
     BST,
     DIEN,
     DIN,
     DLRM,
+    EGES,
+    ESMM,
+    MMOE,
+    evaluate_head,
     init_model,
+    link_prediction_auc,
     make_aux_loss_task,
     make_ctr_task,
+    make_head_eval,
+    make_multitask_task,
+    make_skipgram_task,
 )
 from recommender_tpu_torch.ops import _build
 from recommender_tpu_torch.ops import embedding_kernels as ek
@@ -292,6 +346,48 @@ CTR_AUC_MARGIN = {"DLRM": 0.2, "DeepFM": 0.1, "DCN": 0.2}
 # same batches (the same GEMM shapes, so the same roundings)
 PREDICT_TOL = 1e-6
 PREDICT_ROWS = EVAL_BATCHES * BATCH + 1000  # the last batch padded
+
+# MMOE and ESMM at bench_models.py::bench_mmoe_large width (mmoe_aliccp_b8192):
+# 18 per-feature tables of 100,000 x 18, 8 experts of 324→200→80, 2 softmax
+# gates, towers 80→40→1; ESMM's towers 324→360→200→80→1; batch 8192 of
+# SyntheticMultiTask rows. K1 launches per step: one per table, or one for
+# the stacked [1.8M, 18] table.
+MT_VOCAB, MT_FEATS, MT_DIM, MT_BATCH = 100_000, 18, 18, 8192
+MT_STEPS = 50  # per-table f32, per-table bf16 + SR, stacked f32
+ESMM_STEPS = 20
+MT_K1_PER_STEP, MT_STACKED_K1_PER_STEP = MT_FEATS, 1
+# stacked against per-table tables from one init: the same function; K1
+# sums each row's contributions in other chunks (f32 roundoff), which Adam
+# carries into the later steps' losses
+MT_STACKED_LOSS_TOL = 1e-4
+# cli.train_esmm on the card, on its synthetic set (18 columns of vocab 50);
+# MMOE also 40 steps + --resume 40 against the straight run
+ESMM_CLI_STEPS = 80
+ESMM_CLI_ARGS = ("--synthetic", "--train_batch_size", "1024", "--test_batch_size", "4096",
+                 "--learning_rate", "3e-3", "--log_every", "20", "--eval_every", "0")
+# Final AUCs over 0.5 (cvr, ctcvr; BASE reports ctcvr only), set from the
+# first run on an H100 80GB HBM3 (700 W): ESMM 0.741 / 0.803, MMOE 0.691 /
+# 0.795, BASE 0.827 (deterministic up to GEMM rounding); each margin leaves
+# ~0.09 of room without letting a model that learned nothing through.
+ESMM_CLI_AUC_MARGIN = {"ESMM": (0.15, 0.2), "MMOE": (0.1, 0.2), "BASE": (None, 0.2)}
+# EGES at bench_models.py::bench_eges width (eges_device_b4096): a random
+# graph of 100,000 nodes and 2,000,000 weighted edges, D 128, cat vocab 200,
+# brand vocab 2,000, walks of 10, window 5, 5 negatives, batch 4096; K1
+# launches per step: the id, cat, brand, weight and output tables
+EGES_V, EGES_EDGES, EGES_DIM, EGES_CATS, EGES_BRANDS = 100_000, 2_000_000, 128, 200, 2000
+EGES_BATCH, EGES_STEPS, EGES_K1_PER_STEP = 4096, 50, 5
+EGES_SAMPLER_BATCHES = 20  # the host sampler alone
+# cli.train_eges on the card, on its synthetic community graph (2,000
+# nodes); link-prediction AUC on intra-community pairs against uniform
+# negatives over 0.5, margins set from the first run on that card: BGE
+# 0.622 (ids alone, 200 steps), GES 0.970, EGES 0.962, EGES with the shared
+# tables' updates halved 0.961 (the cat is the community)
+EGES_CLI_STEPS = 200
+EGES_CLI_ARGS = ("--synthetic", "--learning_rate", "5e-3", "--log_every", "50")
+EGES_CLI_RUNS = {"BGE": ("BGE",), "GES": ("GES",), "EGES": ("EGES",),
+                 "EGES_shared_0.5": ("EGES", "--shared_lr_scale", "0.5")}
+EGES_CLI_K1_PER_STEP = {"BGE": 2, "GES": 4, "EGES": 5}
+EGES_CLI_AUC_MARGIN = {"BGE": 0.05, "GES": 0.4, "EGES": 0.4, "EGES_shared_0.5": 0.4}
 
 # H100 SXM peaks (NVIDIA data sheet, dense), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
@@ -425,7 +521,20 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
                          bound_ms=bound_ms)
 
 
-def phase_k1(device, seq_batch: dict) -> dict:
+def _k1_ids_case(results, device, name, ids: np.ndarray, dim: int, vocab: int,
+                 dtype=torch.float32, **info):
+    """K1 on one lookup's ids (sorted stably, with ``order``) and random
+    cotangent rows of ``dim`` in ``dtype``, as the lookup's backward calls it."""
+    raw = torch.from_numpy(np.ascontiguousarray(ids, np.int32).reshape(-1)).to(device)
+    sorted_ids, order = torch.sort(raw, stable=True)
+    order = order.to(torch.int32)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    upd = torch.randn((raw.numel(), dim), generator=g, device=device).to(dtype)
+    _k1_case(results, name, sorted_ids, upd, order, torch.float32,
+             upd.index_select(0, order.long()).float(), vocab, **info)
+
+
+def phase_k1(device, seq_batch: dict, mt_batch: dict, eges_batch: dict) -> dict:
     sorted_ids, order, upd = k1_inputs(device)
     upd_sorted = upd.index_select(0, order.long()).contiguous()
     upd_bf16 = upd.to(torch.bfloat16)
@@ -500,6 +609,22 @@ def phase_k1(device, seq_batch: dict) -> dict:
     _k1_case(results, "dedup_uniq_scatter_bf16", plan["uniq"], d_uniq, None, torch.float32,
              d_uniq.float(), VOCAB, u_cap=u_cap,
              pad_ids=int((plan["uniq"] >= VOCAB).sum()))
+    # MMOE at b8192: one per-table lookup's backward (f32 table; a bf16
+    # table's cotangent is bf16), and the stacked table's, each feature's ids
+    # shifted to its segment
+    feats = mt_batch["features"]
+    _k1_ids_case(results, device, "mmoe_table_f32_order", feats[:, 0], MT_DIM, MT_VOCAB)
+    _k1_ids_case(results, device, "mmoe_table_bf16_order", feats[:, 0], MT_DIM, MT_VOCAB,
+                 torch.bfloat16)
+    stacked = feats + (np.arange(MT_FEATS, dtype=np.int32) * MT_VOCAB)[None, :]
+    _k1_ids_case(results, device, "mmoe_stacked_f32_order", stacked, MT_DIM,
+                 MT_VOCAB * MT_FEATS)
+    # EGES at b4096: the output table (the positive and 5 negative contexts),
+    # the cat table (runs of ~20 equal ids in 200 rows) and the weight table (D 3)
+    for name, key, dim, vocab in (("eges_output_f32_order", "context", EGES_DIM, EGES_V),
+                                  ("eges_cat_f32_order", "target_cat", EGES_DIM, EGES_CATS),
+                                  ("eges_weight_f32_order", "target", 3, EGES_V)):
+        _k1_ids_case(results, device, name, eges_batch[key], dim, vocab)
     return results
 
 
@@ -936,6 +1061,8 @@ def _sequence_model(cls, device, table_dtype=torch.float32, **kw):
 
 
 def _task_of(model):
+    if isinstance(model, (ESMM, MMOE)):
+        return make_multitask_task(model)
     return make_aux_loss_task(model) if isinstance(model, DIEN) else make_ctr_task(model)
 
 
@@ -1338,6 +1465,348 @@ def phase_ctr_predict(state) -> dict:
     return dict(line=line, k1_launches=launches)
 
 
+# ------------------------------------------------- multi-task and graph
+def multitask_data() -> tuple[dict, dict]:
+    """``SyntheticMultiTask`` rows at bench_mmoe_large's vocabularies:
+    MT_STEPS batches to train on and EVAL_BATCHES held out."""
+    gen = SyntheticMultiTask(vocab_sizes=(MT_VOCAB,) * MT_FEATS, seed=SEED)
+    return gen.sample(MT_STEPS * MT_BATCH, seed=1), gen.sample(EVAL_BATCHES * MT_BATCH, seed=2)
+
+
+def _mt_model(cls, device, table_dtype=torch.float32, stack=False, **kw):
+    model = cls(vocab_sizes=(MT_VOCAB,) * MT_FEATS, embed_dim=MT_DIM, stack_tables=stack,
+                embed_param_dtype=table_dtype, device=device, **kw)
+    return init_model(model, seed=SEED)
+
+
+def _host_timed_fit(model, device, train, batch: int, steps: int) -> dict:
+    """``_timed_fit`` with the host's put and enqueue times: the synced step
+    (median of the last TIMED_STEPS), the enqueue, the losses, K1 launches
+    and peak memory of the run."""
+    torch.cuda.reset_peak_memory_stats()
+    with host_times() as host:
+        trainer, state, logs, stamps, launches = _timed_fit(model, device, train, batch, steps)
+    timed = slice(-min(TIMED_STEPS, steps - 1), None)
+    step_ms = (np.diff(np.array(stamps)) * 1e3)[timed]
+    return dict(trainer=trainer, state=state, logs=logs, launches=launches,
+                summary=dict(steps=state.step, losses=[m["loss"] for m in logs],
+                             ms_per_step_median=float(np.median(step_ms)),
+                             ms_per_step_min=float(step_ms.min()),
+                             ms_per_step_max=float(step_ms.max()),
+                             examples_per_s=batch / (float(np.median(step_ms)) / 1e3),
+                             host_enqueue_ms_median=float(np.median(
+                                 np.array(host["enqueue"][:steps])[timed])),
+                             host_put_ms_median=float(np.median(
+                                 np.array(host["put"][:steps])[timed])),
+                             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             k1_launches=launches))
+
+
+def phase_mmoe_train(device, train, test) -> int:
+    """MMOE at bench_mmoe_large width: per-table f32 tables, per-table bf16
+    tables with stochastic rounding, and one stacked f32 table started from
+    the per-table run's init (the same function: the losses must agree);
+    then ESMM at the same width. K1 launches exactly once per table and
+    step, or once a step for the stacked table."""
+    per_table = _mt_model(MMOE, device)
+    stacked = _mt_model(MMOE, device, stack=True)
+    with torch.no_grad():  # the per-table init, stacked
+        init = per_table.state_dict()
+        stacked.embedder.stacked_embedding.copy_(torch.cat(
+            [init[f"embedder.feat_{j}.embedding"] for j in range(MT_FEATS)]))
+        stacked.load_state_dict({k: v for k, v in init.items() if not k.startswith("embedder.")},
+                                strict=False)
+    runs = {}
+    for name, model, per_step in (
+        ("per_table_f32", per_table, MT_K1_PER_STEP),
+        ("per_table_bf16_sr", _mt_model(MMOE, device, torch.bfloat16), MT_K1_PER_STEP),
+        ("stacked_f32", stacked, MT_STACKED_K1_PER_STEP),
+    ):
+        runs[name] = _host_timed_fit(model, device, train, MT_BATCH, MT_STEPS)
+        _check_fit(f"MMOE {name}", runs[name]["state"], runs[name]["logs"], MT_STEPS,
+                   runs[name]["launches"], per_step)
+        runs[name]["summary"]["k1_per_step"] = per_step
+    esmm = _host_timed_fit(_mt_model(ESMM, device), device, train, MT_BATCH, ESMM_STEPS)
+    _check_fit("ESMM", esmm["state"], esmm["logs"], ESMM_STEPS, esmm["launches"],
+               MT_K1_PER_STEP)
+    first = runs["per_table_f32"]
+    ctcvr_auc = evaluate_head(first["trainer"], first["state"],
+                              batch_iterator(test, MT_BATCH, shuffle=False),
+                              make_head_eval(per_table, "ctcvr", "purchase"), exact=True)
+    stacked_diff = max(abs(a - b) for a, b in zip(runs["stacked_f32"]["summary"]["losses"],
+                                                  first["summary"]["losses"]))
+    emit("mmoe_train", batch=MT_BATCH, tables=f"{MT_FEATS} x [{MT_VOCAB}, {MT_DIM}]",
+         **{name: r["summary"] for name, r in runs.items()}, esmm=esmm["summary"],
+         per_table_f32_eval_ctcvr_auc_exact=ctcvr_auc,
+         stacked_vs_per_table_max_loss_diff=stacked_diff, tolerance=MT_STACKED_LOSS_TOL)
+    for name, r in [*runs.items(), ("esmm", esmm)]:
+        losses = r["summary"]["losses"]
+        check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"{name} loss did not fall: {losses[:5]} -> {losses[-5:]}")
+    check(runs["per_table_bf16_sr"]["state"].model.embedder.feat_0.embedding.dtype
+          == torch.bfloat16, "bf16 table dtype")
+    check(stacked_diff <= MT_STACKED_LOSS_TOL,
+          f"stacked vs per-table MMOE losses differ by {stacked_diff}")
+    # 50 steps at 100,000 rows a table see each id a few times: the quality
+    # guards are esmm_cli's
+    check(0.0 <= ctcvr_auc <= 1.0, f"MMOE ctcvr AUC {ctcvr_auc}")
+    return sum(r["launches"] for r in runs.values()) + esmm["launches"]
+
+
+SMALL_MT = dict(vocab_sizes=(50,) * 4, embed_dim=8, num_experts=4, expert_units=(16, 8),
+                tower_units=(8, 1))
+
+
+def _small_fit_losses(make_model, state_dict, task, batches, device) -> list[float]:
+    model = make_model(device)
+    model.load_state_dict(state_dict)
+    loss_fn, eval_fn = task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1), eval_fn, device=device)
+    losses = []
+    trainer.fit(trainer.init_state(lambda: model), iter(batches), 3,
+                log_fn=lambda m: losses.append(m["loss"]))
+    return losses
+
+
+def phase_mt_graph_card_cpu(device, eges_graph: tuple):
+    """A small MMOE and a small EGES, 3 steps each from one init on the card
+    and on the CPU; the losses must agree."""
+    mt = SyntheticMultiTask(num_feats=4, seed=SEED).sample(3 * 256, seed=1)
+    mt_batches = list(batch_iterator(mt, 256, seed=SEED))
+    g, side = eges_graph
+    it = skipgram_batches(g, batch_size=256, walks_per_round=64, side_info=side, seed=SEED)
+    eges_batches = [next(it) for _ in range(3)]
+    out = {}
+    for name, make, task, batches, per_step in (
+        ("mmoe", lambda d: MMOE(**SMALL_MT, device=d), make_multitask_task, mt_batches, 4),
+        ("eges", lambda d: EGES(EGES_V, EGES_CATS, EGES_BRANDS, 16, device=d),
+         make_skipgram_task, eges_batches, EGES_K1_PER_STEP),
+    ):
+        init = init_model(make(torch.device("cpu")), seed=SEED).state_dict()
+        before = ek.sorted_scatter_add.launches
+        card = _small_fit_losses(make, init, task, batches, device)
+        launched = ek.sorted_scatter_add.launches - before
+        cpu = _small_fit_losses(make, init, task, batches, torch.device("cpu"))
+        diff = max(abs(a - b) for a, b in zip(card, cpu))
+        out[name] = dict(card_losses=card, cpu_losses=cpu, max_abs_diff=diff,
+                         k1_launches_on_card=launched)
+        check(len(card) == len(cpu) == 3, f"{name} card/CPU step count")
+        check(launched == 3 * per_step, f"{name} card run launched K1 {launched} times")
+        check(diff <= CARD_CPU_LOSS_TOL, f"{name} card vs CPU losses differ by {diff}")
+    emit("mt_graph_card_cpu", **out, tolerance=CARD_CPU_LOSS_TOL)
+
+
+def phase_esmm_cli() -> int:
+    """``cli.train_esmm.main`` as a user calls it (``--device`` at its
+    default, the card): ESMM, MMOE and BASE with AUC guards; MMOE's 80
+    steps straight against 40 + ``--resume`` 40, bit for bit; then
+    ``cli.predict --family esmm`` from the resumed checkpoint on the CLI's
+    test split: the heads must equal the restored model's eval forward."""
+    root = _build.BUILD_DIR / "esmm_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs, launches = {}, 0
+    for kind in ("ESMM", "MMOE", "BASE"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ckpt = [] if kind == "BASE" else ["--checkpoint_dir", str(root / kind.lower())]
+        out, lines = _cli_run([*ESMM_CLI_ARGS, "--model_type", kind,
+                               "--steps", str(ESMM_CLI_STEPS), *ckpt], train_esmm.main)
+        torch.cuda.synchronize()
+        n = ek.sorted_scatter_add.launches
+        launches += n
+        models = 2 if kind == "BASE" else 1
+        runs[kind] = dict(final=lines[-1], seconds=time.perf_counter() - t0, k1_launches=n,
+                          losses=[m["loss"] for m in lines if "loss" in m])
+        device = next((out["ctr"][0] if kind == "BASE" else out.model).parameters()).device
+        check(device.type == "cuda", f"{kind}: the CLI did not run on the card")
+        check(n == MT_K1_PER_STEP * ESMM_CLI_STEPS * models, f"{kind}: K1 launched {n} times")
+        cvr_margin, ctcvr_margin = ESMM_CLI_AUC_MARGIN[kind]
+        final = lines[-1]
+        check(final["ctcvr_auc"] > 0.5 + ctcvr_margin,
+              f"{kind} ctcvr_auc {final['ctcvr_auc']} <= 0.5 + {ctcvr_margin}")
+        if cvr_margin is not None:
+            check(final["cvr_auc"] > 0.5 + cvr_margin,
+                  f"{kind} cvr_auc {final['cvr_auc']} <= 0.5 + {cvr_margin}")
+        if kind == "MMOE":
+            straight = out
+    half = ESMM_CLI_STEPS // 2
+    ckpt = ["--checkpoint_dir", str(root / "resumed")]
+    args = [*ESMM_CLI_ARGS, "--model_type", "MMOE"]
+    reset_counts()
+    _cli_run([*args, "--steps", str(half), *ckpt], train_esmm.main)
+    resumed, resumed_lines = _cli_run([*args, "--steps", str(ESMM_CLI_STEPS - half),
+                                       "--resume", *ckpt], train_esmm.main)
+    launches += ek.sorted_scatter_add.launches
+    want, got = straight.model.state_dict(), resumed.model.state_dict()
+    differing = [k for k in want if not torch.equal(want[k], got[k])]
+    moments = straight.optimizer.state_dict(), resumed.optimizer.state_dict()
+    differing += [f"{w}[{i}]" for w in ("mu", "nu")
+                  for i, (a, b) in enumerate(zip(moments[0][w], moments[1][w]))
+                  if not torch.equal(a, b)]
+    files = sorted(f.name for f in (root / "resumed").iterdir())
+    # predict from the resumed checkpoint, on the CLI's test split
+    test = SyntheticMultiTask(seed=SEED).sample(20_000, seed=2)
+    np.savez(root / "predict_in.npz", **test)
+    reset_counts()
+    t0 = time.perf_counter()
+    scores, (line,) = _cli_run(["--family", "esmm", "--model_type", "MMOE",
+                                "--checkpoint_dir", str(root / "resumed"), "--batch_size", "4096",
+                                "--input", str(root / "predict_in.npz"),
+                                "--output", str(root / "predict_out.npz")], predict.main)
+    predict_seconds = time.perf_counter() - t0
+    predict_launches = ek.sorted_scatter_add.launches
+    model = resumed.model.eval()
+    with torch.no_grad():
+        heads = model({"features": torch.from_numpy(test["features"]).to(
+            next(model.parameters()).device)})
+    saved = dict(np.load(root / "predict_out.npz"))
+    errs = {k: float(np.abs(saved[k] - heads[k].cpu().numpy()).max()) for k in heads}
+    emit("esmm_cli", args=list(ESMM_CLI_ARGS), steps=ESMM_CLI_STEPS, runs=runs,
+         auc_margins={k: list(v) for k, v in ESMM_CLI_AUC_MARGIN.items()},
+         resumed_final=resumed_lines[-1], resumed_step=resumed.step, checkpoints=files,
+         tensors_differing_after_resume=differing, predict=line,
+         predict_seconds=predict_seconds, predict_max_abs_err=errs,
+         predict_tolerance=PREDICT_TOL, predict_k1_launches=predict_launches)
+    shutil.rmtree(root, ignore_errors=True)
+    check(straight.step == ESMM_CLI_STEPS == resumed.step, "resume step counts")
+    check(files == sorted([f"step_{half}.pt", f"step_{ESMM_CLI_STEPS}.pt"]),
+          f"checkpoints {files}")
+    check(not differing, f"resumed MMOE differs from the straight run in {differing}")
+    check(runs["MMOE"]["final"] == resumed_lines[-1], "resumed run's final AUCs differ")
+    check(sorted(scores) == ["ctcvr", "ctr", "cvr"] and line["predicted"] == 20_000,
+          f"predict heads {sorted(scores)}")
+    check(all(np.isfinite(v).all() for v in saved.values()), "non-finite predict scores")
+    check(max(errs.values()) <= PREDICT_TOL, f"predict heads off the eval forward by {errs}")
+    check(predict_launches == 0, f"predict launched K1 {predict_launches} times")
+    return launches
+
+
+def eges_graph() -> tuple:
+    """bench_eges's graph: 2,000,000 random weighted edges over 100,000
+    nodes, with cat and brand side info (built with the native sampler)."""
+    rng = np.random.default_rng(SEED)
+    src = rng.integers(1, EGES_V, EGES_EDGES)
+    dst = rng.integers(1, EGES_V, EGES_EDGES)
+    w = rng.random(EGES_EDGES).astype(np.float32)
+    g = WeightedGraph.from_edges(src, dst, w, num_nodes=EGES_V)
+    side = {"cat": rng.integers(1, EGES_CATS, EGES_V).astype(np.int32),
+            "brand": rng.integers(1, EGES_BRANDS, EGES_V).astype(np.int32)}
+    return g, side
+
+
+def eges_stream(g, side, seed=SEED):
+    return skipgram_batches(g, batch_size=EGES_BATCH, walks_per_round=512, side_info=side,
+                            seed=seed)
+
+
+def phase_eges_train(device, graph: tuple) -> int:
+    """EGES at bench_eges width, 50 steps through ``Trainer.fit`` (the
+    sampler in its prefetch thread), a sync at each step; then the host
+    sampler alone."""
+    g, side = graph
+    check(native.is_available() and g.native, "the native graph sampler did not load")
+    model = init_model(EGES(EGES_V, EGES_CATS, EGES_BRANDS, EGES_DIM, device=device), seed=SEED)
+    loss_fn, eval_fn = make_skipgram_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1, eval_every=0,
+                                           seed=SEED), eval_fn, device=device)
+    it = eges_stream(g, side)
+    next(it)  # the init example, as cli.train_eges takes it
+    state = trainer.init_state(lambda: model)
+    stamps, losses = [], []
+
+    def log_fn(m):
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with host_times() as host:
+        state, _ = trainer.fit(state, it, EGES_STEPS, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launches = ek.sorted_scatter_add.launches
+    step_ms = (np.diff(np.array(stamps)) * 1e3)[-TIMED_STEPS:]
+    sampler = eges_stream(g, side, seed=SEED + 1)
+    next(sampler)
+    t0 = time.perf_counter()
+    for _ in range(EGES_SAMPLER_BATCHES):
+        next(sampler)
+    sampler_s = (time.perf_counter() - t0) / EGES_SAMPLER_BATCHES
+    emit("eges_train", steps=state.step, batch=EGES_BATCH, nodes=EGES_V, edges=EGES_EDGES,
+         dim=EGES_DIM, losses=losses, ms_per_step_median=float(np.median(step_ms)),
+         ms_per_step_min=float(step_ms.min()), ms_per_step_max=float(step_ms.max()),
+         pairs_per_s=EGES_BATCH / (float(np.median(step_ms)) / 1e3),
+         host_enqueue_ms_median=float(np.median(host["enqueue"][-TIMED_STEPS:])),
+         host_put_ms_median=float(np.median(host["put"][-TIMED_STEPS:])),
+         sampler_ms_per_batch=sampler_s * 1e3, sampler_batches_per_s=1.0 / sampler_s,
+         native_sampler=native.is_available(),
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+         k1_launches=launches, k1_per_step=EGES_K1_PER_STEP)
+    check(state.step == EGES_STEPS == len(losses), f"EGES took {state.step} steps")
+    check(all(math.isfinite(x) for x in losses), "non-finite EGES loss")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]), f"EGES loss did not fall: {losses}")
+    check(launches == EGES_K1_PER_STEP * EGES_STEPS, f"EGES: K1 launched {launches} times")
+    return launches
+
+
+def _community_triples(comm: np.ndarray, side: dict, num_nodes: int, n: int = 4000) -> dict:
+    """Held-out pairs from one community against uniform negatives
+    (tests/test_eges.py's link-prediction set), with side info."""
+    rng = np.random.default_rng(1)
+    qs, ps, ns = [], [], []
+    for _ in range(n):
+        pool = np.where(comm == rng.integers(0, comm.max() + 1))[0]
+        pool = pool[pool > 0]
+        if len(pool) < 2:
+            continue
+        a, b = rng.choice(pool, 2, replace=False)
+        qs.append(a)
+        ps.append(b)
+        ns.append(rng.integers(1, num_nodes))
+    out = {"query": np.array(qs, np.int32), "pos": np.array(ps, np.int32),
+           "neg": np.array(ns, np.int32)}
+    for role in ("query", "pos", "neg"):
+        for name, arr in side.items():
+            out[f"{role}_{name}"] = arr[out[role]]
+    return out
+
+
+def phase_eges_cli() -> int:
+    """``cli.train_eges.main`` on the card (its synthetic community graph):
+    BGE, GES, EGES, and EGES with ``--shared_lr_scale 0.5``, each scored by
+    link prediction on intra-community pairs."""
+    g, side, comm = train_eges._synthetic_graph(seed=SEED)
+    triples = _community_triples(comm, side, g.num_nodes)
+    ids_only = {k: triples[k] for k in ("query", "pos", "neg")}
+    runs, launches = {}, 0
+    for name, flags in EGES_CLI_RUNS.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, lines = _cli_run([*EGES_CLI_ARGS, "--model_type", *flags,
+                                 "--steps", str(EGES_CLI_STEPS)], train_eges.main)
+        torch.cuda.synchronize()
+        n = ek.sorted_scatter_add.launches
+        launches += n
+        auc = link_prediction_auc(state.model, ids_only if flags[0] == "BGE" else triples)
+        runs[name] = dict(losses=[m["loss"] for m in lines], link_prediction_auc=auc,
+                          k1_launches=n, seconds=time.perf_counter() - t0,
+                          lr_scales=state.optimizer.scales is not None,
+                          device=str(next(state.model.parameters()).device))
+        check(runs[name]["device"].startswith("cuda"), f"{name}: the CLI did not run on the card")
+        check(n == EGES_CLI_K1_PER_STEP[flags[0]] * EGES_CLI_STEPS,
+              f"{name}: K1 launched {n} times")
+        check(auc > 0.5 + EGES_CLI_AUC_MARGIN[name],
+              f"{name} link_prediction_auc {auc} <= 0.5 + {EGES_CLI_AUC_MARGIN[name]}")
+        check(runs[name]["lr_scales"] == ("--shared_lr_scale" in flags),
+              f"{name}: lr_scales {runs[name]['lr_scales']}")
+    emit("eges_cli", args=list(EGES_CLI_ARGS), steps=EGES_CLI_STEPS, triples=len(ids_only["query"]),
+         runs=runs, auc_margins=EGES_CLI_AUC_MARGIN)
+    return launches
+
+
 # kernel-name fragments for the profile's parts, matched in this order
 PROFILE_PARTS = (
     ("k2_fwd", ("flash_fwd_",)),
@@ -1348,22 +1817,15 @@ PROFILE_PARTS = (
 )
 
 
-def profile_bst(device, steps: int = 10) -> dict:
-    """The BST step at bench_bst width with flash attention: synced step
-    time (``float(loss)`` each step), unsynced step time and the host's
-    enqueue time, then ``torch.profiler`` over ``steps`` steps: device time
-    by part (kernel times summed by name), device busy time and kernel
-    launches per step. Uses only the package's public entry points, so it
-    profiles any tree of the port it is run in."""
-    train, _ = bst_data()
-    model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, device=device)
-    init_model(model, seed=SEED)
-    _set_flash(model, True)
-    loss_fn, eval_fn = make_ctr_task(model)
+def _step_times(model, task, batches, device) -> tuple:
+    """Synced step time (``float(loss)`` each step, median of the last 10 of
+    20), then the unsynced step time and the host's enqueue time over 20
+    steps with no log point; returns them and a quiet trainer and state to
+    profile with."""
+    loss_fn, eval_fn = task(model)
     trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED),
                       eval_fn, device=device)
     state = trainer.init_state(lambda: model)
-    batches = batch_iterator(train, BST_BATCH, seed=SEED, epochs=None)
     stamps = []
     state, _ = trainer.fit(state, batches, 20, log_fn=lambda m: stamps.append(time.perf_counter()))
     synced = float(np.median(np.diff(stamps)[-10:]) * 1e3)
@@ -1377,9 +1839,17 @@ def profile_bst(device, steps: int = 10) -> dict:
     enqueue = (time.perf_counter() - t0) / 20 * 1e3
     torch.cuda.synchronize()
     unsynced = (time.perf_counter() - t0) / 20 * 1e3
+    return dict(synced_ms_per_step=synced, unsynced_ms_per_step=unsynced,
+                host_enqueue_ms_per_step=enqueue), quiet, qstate
+
+
+def _device_profile(trainer, state, batches, steps: int) -> dict:
+    """``torch.profiler`` over ``steps`` steps: device time by part (kernel
+    times summed by name), device busy time, span and idle share, and kernel
+    launches per step."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        qstate, _ = quiet.fit(qstate, batches, steps)
+        state, _ = trainer.fit(state, batches, steps)
         torch.cuda.synchronize()
     # device activity only: kernels, copies and fills; not the GPU spans of
     # record_function annotations (Optimizer.step), which hold idle time
@@ -1396,13 +1866,49 @@ def profile_bst(device, steps: int = 10) -> dict:
     first = min(e.time_range.start for e in kernels)
     last = max(e.time_range.end for e in kernels)
     busy = sum(parts.values()) / steps / 1e3
+    span = (last - first) / steps / 1e3
     top = sorted(by_name.items(), key=lambda x: -x[1])[:12]
-    return dict(steps=steps, synced_ms_per_step=synced, unsynced_ms_per_step=unsynced,
-                host_enqueue_ms_per_step=enqueue, device_busy_ms_per_step=busy,
-                device_span_ms_per_step=(last - first) / steps / 1e3,
-                launches_per_step=len(kernels) / steps,
+    return dict(steps=steps, device_busy_ms_per_step=busy, device_span_ms_per_step=span,
+                device_idle_share=1.0 - busy / span, launches_per_step=len(kernels) / steps,
                 parts_ms_per_step={n: t / steps / 1e3 for n, t in parts.items()},
                 top_kernels_ms_per_step={n: t / steps / 1e3 for n, t in top})
+
+
+def profile_bst(device, steps: int = 10) -> dict:
+    """The BST step at bench_bst width with flash attention: synced and
+    unsynced step times and the host's enqueue time, then the device
+    profile over ``steps`` steps. Uses only the package's public entry
+    points, so it profiles any tree of the port it is run in."""
+    train, _ = bst_data()
+    model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, device=device)
+    init_model(model, seed=SEED)
+    _set_flash(model, True)
+    batches = batch_iterator(train, BST_BATCH, seed=SEED, epochs=None)
+    times, trainer, state = _step_times(model, make_ctr_task, batches, device)
+    return dict(**times, **_device_profile(trainer, state, batches, steps))
+
+
+def profile_mt_graph(device, steps: int = 10) -> dict:
+    """The MMOE step at bench_mmoe_large width (per-table f32, per-table
+    bf16 + SR, stacked f32) and the EGES step at bench_eges width: each
+    one's step times first, then each one's device profile (profiling
+    slows every later launch of the process)."""
+    train, _ = multitask_data()
+    g, side = eges_graph()
+    runs = {
+        "mmoe_per_table_f32": (_mt_model(MMOE, device), make_multitask_task,
+                               batch_iterator(train, MT_BATCH, seed=SEED, epochs=None)),
+        "mmoe_per_table_bf16_sr": (_mt_model(MMOE, device, torch.bfloat16), make_multitask_task,
+                                   batch_iterator(train, MT_BATCH, seed=SEED, epochs=None)),
+        "mmoe_stacked_f32": (_mt_model(MMOE, device, stack=True), make_multitask_task,
+                             batch_iterator(train, MT_BATCH, seed=SEED, epochs=None)),
+        "eges": (init_model(EGES(EGES_V, EGES_CATS, EGES_BRANDS, EGES_DIM, device=device),
+                            seed=SEED), make_skipgram_task, eges_stream(g, side)),
+    }
+    timed = {name: _step_times(model, task, batches, device)
+             for name, (model, task, batches) in runs.items()}
+    return {name: dict(**times, **_device_profile(trainer, state, runs[name][2], steps))
+            for name, (times, trainer, state) in timed.items()}
 
 
 # DIEN's parts for the profile: a part is the submodules whose forward (and,
@@ -1595,10 +2101,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    if sys.argv[1:] in (["--profile-bst"], ["--profile-dien"], ["--fwd-occupancy"]):
+    if sys.argv[1:] in (["--profile-bst"], ["--profile-dien"], ["--profile-mt-graph"],
+                        ["--fwd-occupancy"]):
         smi = phase_device()
         if sys.argv[1] == "--profile-bst":
             emit("profile_bst", **profile_bst(device))
+        elif sys.argv[1] == "--profile-mt-graph":
+            phase_build()
+            emit("profile_mt_graph", **profile_mt_graph(device))
         elif sys.argv[1] == "--profile-dien":
             phase_build()
             emit("profile_dien", **profile_dien(device))
@@ -1612,14 +2122,18 @@ def main() -> int:
         }}), flush=True)
         return 0
     if sys.argv[1:]:
-        print(f"usage: {sys.argv[0]} [--profile-bst | --profile-dien | --fwd-occupancy]",
+        print(f"usage: {sys.argv[0]} [--profile-bst | --profile-dien | --profile-mt-graph | "
+              "--fwd-occupancy]",
               file=sys.stderr)
         return 2
     smi = phase_device()
     phase_build()
     seq_train, seq_test = sequence_data()
     bst_train, bst_test = without_negatives(seq_train), without_negatives(seq_test)
-    k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in seq_train.items()})
+    mt_train, mt_test = multitask_data()
+    graph = eges_graph()
+    k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in seq_train.items()},
+                  {k: v[:MT_BATCH] for k, v in mt_train.items()}, next(eges_stream(*graph)))
     k2_cases = k2_shapes(device, bst_train)
     k2 = {}
     for key, (case, valid, head_dim, route) in k2_cases.items():
@@ -1640,12 +2154,21 @@ def main() -> int:
     ctr = phase_ctr_cli()
     ctr_predict = phase_ctr_predict(ctr["resume"]["state"])
     emit("ctr_phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mmoe_k1 = phase_mmoe_train(device, mt_train, mt_test)
+    phase_mt_graph_card_cpu(device, graph)
+    esmm_cli_k1 = phase_esmm_cli()
+    eges_k1 = phase_eges_train(device, graph)
+    eges_cli_k1 = phase_eges_cli()
+    emit("multitask_graph_phases", seconds=time.perf_counter() - t0)
     ctr_k1 = {"ctr_cli": ctr["dlrm"]["k1_launches"] + ctr["dlrm_again"]["k1_launches"],
               "ctr_cli_dedup": (ctr["dlrm_dedup"]["k1_launches"]
                                 + ctr["dlrm_dedup_again"]["k1_launches"]),
               "deepfm": ctr["deepfm"]["k1_launches"], "dcn": ctr["dcn"]["k1_launches"],
               "ctr_shards": ctr["shards"]["k1_launches"],
               "ctr_resume": ctr["resume"]["k1_launches"], "ctr_predict": ctr_predict["k1_launches"]}
+    graph_k1 = {"mmoe_esmm": mmoe_k1, "esmm_cli": esmm_cli_k1, "eges": eges_k1,
+                "eges_cli": eges_cli_k1}
     print(smi, flush=True)
     main_case = k1["bf16_order"]  # the bf16 table's backward: bf16 cotangent + order
     kernels = [{
@@ -1654,12 +2177,12 @@ def main() -> int:
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         # DLRM run + the two BST runs + the DIEN, DIN, long-DIEN and CLI runs
-        # + the CTR entry points' runs
+        # + the CTR, multi-task and graph runs and entry points
         "launches": (dlrm_k1 + bst_launches["k1"] + long_launches["k1"] + dien_k1 + din_k1
-                     + dien_long_k1 + cli_k1 + sum(ctr_k1.values())),
+                     + dien_long_k1 + cli_k1 + sum(ctr_k1.values()) + sum(graph_k1.values())),
         "launches_by_path": dict(dlrm=dlrm_k1, bst=bst_launches["k1"], bst_long=long_launches["k1"],
                                  dien=dien_k1, din=din_k1, dien_long=dien_long_k1,
-                                 dien_cli=cli_k1, **ctr_k1),
+                                 dien_cli=cli_k1, **ctr_k1, **graph_k1),
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1678,6 +2201,14 @@ def main() -> int:
         # segment sum into [U_cap, 16], then the unique rows into [1M, 16]
         **{f"{case}_{key}": k1[case][key]
            for case in ("dedup_segment_sum_bf16_order", "dedup_uniq_scatter_bf16")
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        # MMOE b8192: a per-table lookup's backward into [100,000, 18] (f32,
+        # bf16 cotangent) and the stacked table's into [1.8M, 18]; EGES
+        # b4096: the output table [100,000, 128], the cat table [200, 128],
+        # the weight table [100,000, 3]
+        **{f"{case}_{key}": k1[f"{case}_order"][key]
+           for case in ("mmoe_table_f32", "mmoe_table_bf16", "mmoe_stacked_f32",
+                        "eges_output_f32", "eges_cat_f32", "eges_weight_f32")
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     # each K2 kernel at the shape of its main path: the fused forward and

@@ -8,17 +8,25 @@ reference; the port never imports it (nor jax, flax or optax).
 Slice 1 covers DLRM training at ``bench.py`` width, slice 2 BST training
 at ``benchmarks/bench_models.py::bench_bst`` width, later slices the
 DIN/DIEN family through the ``cli.train_dien`` entry point with checkpoint
-and resume, and the CTR family (DLRM, DeepFM, DCN) through ``cli.train_ctr``
-and ``cli.predict``:
+and resume, the CTR family (DLRM, DeepFM, DCN) through ``cli.train_ctr``
+and ``cli.predict``, the multi-task family (BASE, ESMM, MMOE) through
+``cli.train_esmm`` and ``cli.predict --family esmm``, and the
+graph-embedding family (BGE, GES, EGES) through ``cli.train_eges``:
 
 * ``cli``       — ``train_dien`` (BASE / DIN / DIEN / BST), ``train_ctr``
-                  (DLRM / DeepFM / DCN), ``predict`` (scores a
-                  checkpoint) and the shared flags, logger and trainer
+                  (DLRM / DeepFM / DCN), ``train_esmm`` (BASE / ESMM /
+                  MMOE), ``train_eges`` (BGE / GES / EGES), ``predict``
+                  (scores a checkpoint), ``prepare_aliccp`` (raw Ali-CCP
+                  → npz splits) and the shared flags, logger and trainer
                   bootstrap (``common``).
 * ``data``      — ``SyntheticCTR``, ``SyntheticSequence``,
-                  ``batch_iterator``, the prefetcher, the ordered
-                  interleave, dedup plans, the Criteo shards and the
-                  Amazon Books pipeline (numpy copies).
+                  ``SyntheticMultiTask``, ``batch_iterator``, the
+                  prefetcher, the ordered interleave, dedup plans, the
+                  Criteo shards, the Amazon Books pipeline, Ali-CCP and
+                  the Amazon metadata graph prep (numpy copies).
+* ``graph``     — the weighted graph store with alias tables, random
+                  walks and skip-gram batches (numpy copies, and the
+                  native sampler through ctypes).
 * ``ops``       — stochastic rounding; the embedding lookups whose
                   backward is the hand-written CUDA sorted scatter-add
                   (K1), once, or twice with a dedup plan; flash attention,
@@ -29,12 +37,14 @@ and ``cli.predict``:
                   BCE and masked auxiliary losses, ``masked_mean_pool``,
                   ``LocalActivationUnit``, ``AuxiliaryNet``,
                   ``DIENAttention``, the masked ``GRU`` and ``AUGRU``,
-                  ``TransformerBlock``, the LR schedule.
+                  ``TransformerBlock``, the LR schedule, ``ExpertBank``
+                  and ``MMOEGate``.
 * ``models``    — ``DLRM``, ``DeepFM``, ``DCN``, ``SequenceBase``,
-                  ``BaseModel``, ``DIN``, ``DIEN``, ``BST`` and the task
-                  wrappers.
+                  ``BaseModel``, ``DIN``, ``DIEN``, ``BST``,
+                  ``MultiTaskBase``, ``ESMM``, ``MMOE``, ``DeepWalk``,
+                  ``GES``, ``EGES`` and the task wrappers.
 * ``retrieval`` — batch scoring for ``cli.predict``.
-* ``core``      — SR-Adam, streaming metrics, the single-device ``Trainer``
+* ``core``      — SR-Adam (with per-path update scales), streaming metrics, the single-device ``Trainer``
                   with checkpoints, early stopping and a prefetcher, the
                   TensorBoard event writer.
 * ``convert``   — flax params and ``batch_stats`` → the port's ``state_dict``.

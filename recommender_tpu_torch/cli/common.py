@@ -110,6 +110,7 @@ def build_trainer(args, loss_fn, eval_fn=None, *, device) -> Trainer:
         checkpoint_every=args.checkpoint_every,
         seed=args.seed,
         early_stop_patience=getattr(args, "early_stop_patience", 0),
+        lr_scales=getattr(args, "lr_scales", None) or None,
     )
     return Trainer(loss_fn, cfg, eval_fn, device=device)
 

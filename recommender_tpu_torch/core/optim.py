@@ -21,6 +21,12 @@ JAX flattens the flax tree) rounds its moments with
 param write with ``fold_in(write_key, i)`` — the JAX package's
 derivations, reproduced word for word by ``ops.rounding``. So for the same
 seed, step and leaf both packages draw the same rounding noise.
+
+Per-path update scales (``TrainConfig.lr_scales``, the JAX package's
+``_scale_updates_by_path``): ``AdamSR(scales=...)`` multiplies leaf ``i``'s
+update by ``scales[i]`` after ``-lr * u`` and before the param write, where
+``optax.chain(base, scale)`` applies it; ``path_scales`` computes that list
+from the params' names and the ``{pattern: multiplier}`` dict.
 """
 from __future__ import annotations
 
@@ -72,6 +78,28 @@ def scale_by_adam_sr(
     return out, new_mu, new_nu
 
 
+def path_scales(names: Sequence[str], scales: Optional[dict]) -> list[float]:
+    """Each param's update multiplier under ``{pattern: multiplier}``.
+
+    A name is the port's dotted param name, whose ``.``-separated
+    components are the flax path's (``cat_embedding.embedding``). A pattern
+    is one or more ``/``-separated components and matches a name that holds
+    that exact run of components: ``cat_embedding`` matches
+    ``cat_embedding.embedding`` and not ``concat_embedding.embedding``. The
+    multipliers of every matching pattern multiply; no match is 1."""
+    out = []
+    for name in names:
+        segs = name.split(".")
+        m = 1.0
+        for pat, s in (scales or {}).items():
+            want = [p for p in str(pat).split("/") if p]
+            n = len(want)
+            if n and any(segs[i:i + n] == want for i in range(len(segs) - n + 1)):
+                m *= float(s)
+        out.append(m)
+    return out
+
+
 def apply_updates_sr(
     params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor], key: Key
 ) -> list:
@@ -98,7 +126,9 @@ class AdamSR(torch.optim.Optimizer):
     ``lr`` is a float or a schedule, a callable of the update count that
     returns a float (``nn.schedules``): as optax's
     ``scale_by_learning_rate(schedule)``, it is evaluated at the count
-    before this update, from 0.
+    before this update, from 0. ``scales`` (one float per param, in param
+    order) multiplies each update after the learning rate, as
+    ``TrainConfig.lr_scales`` asks; None scales nothing.
 
     ``state_dict()`` is ``{"count", "mu", "nu"}``: the step count, which the
     moment-rounding keys and a schedule read, and the moments in param
@@ -114,10 +144,15 @@ class AdamSR(torch.optim.Optimizer):
         eps: float = 1e-8,
         seed: int = 0,
         moment_dtype: Optional[torch.dtype] = None,
+        scales: Optional[Sequence[float]] = None,
     ):
         super().__init__(list(params), dict(lr=lr, b1=b1, b2=b2, eps=eps))
         if len(self.param_groups) != 1:
             raise ValueError("AdamSR takes one parameter group")
+        n = len(self.param_groups[0]["params"])
+        if scales is not None and len(scales) != n:
+            raise ValueError(f"{len(scales)} scales for {n} params")
+        self.scales = None if scales is None else [float(s) for s in scales]
         self.seed = seed
         self.count = 0  # Adam steps taken (optax ScaleByAdamState.count)
         for p in self.param_groups[0]["params"]:
@@ -140,6 +175,8 @@ class AdamSR(torch.optim.Optimizer):
         )
         lr = group["lr"](self.count) if callable(group["lr"]) else group["lr"]
         upd = [-lr * u for u in upd]  # optax.scale_by_learning_rate
+        if self.scales is not None:  # optax.chain(base, _scale_updates_by_path)
+            upd = [u * s for u, s in zip(upd, self.scales)]
         new_params = apply_updates_sr(params, upd, write_key)
         for p, m, n, m_new, n_new, p_new in zip(params, mu, nu, new_mu, new_nu, new_params):
             m.copy_(m_new)

@@ -20,9 +20,11 @@ of the update count, ``nn.schedules``). Early stopping follows JAX's
 of ``early_stop_metric`` the loop stops, and with a ``checkpoint_dir`` a
 checkpoint is written at each improvement only. ``fit`` reads the stream
 through a background ``data.pipeline.Prefetcher`` (``prefetch`` batches
-ahead; the copy to the device stays on the calling thread). Gradient
-accumulation and per-path LR scales belong to later slices; the split
-step is a TPU layout workaround and has no counterpart.
+ahead; the copy to the device stays on the calling thread).
+``lr_scales`` ``{path-pattern: multiplier}`` scales matching params'
+updates after the optimizer (``core.optim.path_scales``). Gradient
+accumulation belongs to a later slice; the split step is a TPU layout
+workaround and has no counterpart.
 
 Checkpoints (``save``, ``restore``, ``TrainConfig.checkpoint_dir``): one
 ``torch.save`` file per step number, ``step_<number>.pt``, holding the
@@ -55,7 +57,7 @@ from recommender_tpu_torch.core.metrics import (
     mean_from_state,
     mean_update,
 )
-from recommender_tpu_torch.core.optim import AdamSR
+from recommender_tpu_torch.core.optim import AdamSR, path_scales
 from recommender_tpu_torch.data.pipeline import Prefetcher
 from recommender_tpu_torch.nn.losses import binary_cross_entropy
 from recommender_tpu_torch.ops.rounding import fold_in, prng_key
@@ -78,6 +80,11 @@ class TrainConfig:
     # Adam moment storage dtype: None = the param's own dtype;
     # "float32" = full-precision moments.
     moment_dtype: Optional[str] = None
+    # Per-parameter update scaling {path-pattern: multiplier}, applied after
+    # the learning rate (Adam normalizes plain gradient scaling away). A
+    # pattern matches whole '/'-separated path components: 'cat_embedding'
+    # matches 'cat_embedding.embedding', not 'concat_embedding.embedding'.
+    lr_scales: Optional[dict] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # 0 = only on demand
     max_to_keep: int = 3
@@ -120,7 +127,8 @@ class Trainer:
         Builds ``AdamSR`` over the params in JAX's flatten order, so that
         each param's rounding keys match the JAX package's. Stochastic
         rounding applies to the low-precision params — the JAX Trainer's
-        automatic ``stochastic_round`` mode."""
+        automatic ``stochastic_round`` mode. ``cfg.lr_scales`` gives each
+        param its update multiplier by its name."""
         model = init_model_fn()
         named = jax_leaf_order(model)
         # buffers (BatchNorm's running stats) are the JAX Trainer's model_state
@@ -133,6 +141,8 @@ class Trainer:
             lr=self.cfg.learning_rate,
             seed=self.cfg.seed,
             moment_dtype=None if mdt is None else getattr(torch, mdt),
+            scales=path_scales([n for n, _ in named], self.cfg.lr_scales)
+            if self.cfg.lr_scales else None,
         )
         return TrainState(step=0, model=model, optimizer=optimizer)
 

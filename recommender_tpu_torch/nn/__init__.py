@@ -6,6 +6,7 @@ from recommender_tpu_torch.nn.losses import (
     masked_auxiliary_loss,
 )
 from recommender_tpu_torch.nn.mlp import MLP, BatchNorm
+from recommender_tpu_torch.nn.moe import ExpertBank, MMOEGate
 from recommender_tpu_torch.nn.recurrent import AUGRU, GRU
 from recommender_tpu_torch.nn.schedules import dlrm_warmup_cosine
 from recommender_tpu_torch.nn.sequence import (
@@ -24,9 +25,11 @@ __all__ = [
     "DIENAttention",
     "DenseGeneral",
     "DotInteraction",
+    "ExpertBank",
     "GRU",
     "LocalActivationUnit",
     "MLP",
+    "MMOEGate",
     "TransformerBlock",
     "bce_with_logits",
     "binary_cross_entropy",

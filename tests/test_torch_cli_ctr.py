@@ -334,8 +334,8 @@ def test_predict_synthetic_and_dien(capsys, tmp_path):
 
 
 def test_predict_refusals(tmp_path):
-    with pytest.raises(SystemExit, match="multi-task slice"):
-        predict.main(["--family", "esmm", "--checkpoint_dir", str(tmp_path),
+    with pytest.raises(SystemExit, match="no single checkpoint"):
+        predict.main(["--family", "esmm", "--model_type", "BASE", "--checkpoint_dir", str(tmp_path),
                       "--output", str(tmp_path / "o.npz"), "--device", "cpu"])
     with pytest.raises(SystemExit, match="no checkpoint found"):
         predict.main(["--family", "ctr", "--checkpoint_dir", str(tmp_path / "none"),

@@ -309,7 +309,7 @@ def test_chunk_geometry_fills_one_block(d, vec):
     assert chunk == slots * ek._ROWS_PER_SLOT
 
 
-SWEEP_DIMS = [1, 5, 8, 16, 18, 33, 64, 130]
+SWEEP_DIMS = [1, 3, 5, 8, 16, 18, 33, 64, 128, 130]
 SWEEP_TYPES = ["f32", "bf16_updates", "f32_kernel_bf16"]
 
 

@@ -163,7 +163,7 @@ def test_fit_runs_eval_on_cadence():
         dict(split_step=True),
         dict(accum_steps=2),
         dict(stochastic_round=False),
-        dict(lr_scales={"embedding": 0.5}),
+        dict(optimizer="adagrad"),
     ],
 )
 def test_train_config_rejects_unported_fields(kw):
