@@ -32,7 +32,14 @@ random weights drawn from seed 0:
   (per-table f32 and bf16 tables, and the stacked table), the
   ``cli.train_esmm`` entry point with a resume, and ``cli.predict --family
   esmm``; EGES at ``bench_models.py::bench_eges`` width and the
-  ``cli.train_eges`` entry point (BGE, GES, EGES, per-path update scales).
+  ``cli.train_eges`` entry point (BGE, GES, EGES, per-path update scales,
+  an int8 export);
+* retrieval and serving: PinSage at ``bench_models.py::bench_pinsage``
+  width and the ``cli.train_pinsage`` entry point with its f32, int8 and
+  IVF bundles served by ``cli.serve``; ``cli.train_twotower`` at the
+  RESULTS protocol's width; ``serve_topk`` on a 2M x 128 corpus (f32 and
+  int8, query batches of 1 to 1,024) and IVF at ``exp_ivf.py --quick``
+  width.
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
@@ -64,8 +71,11 @@ Phases, one JSON line each (k2 one per shape):
                   one (147,456 ids into [1.8M, 18]); EGES's output table
                   (24,576 ids into [100,000, 128]), cat table (4,096 ids
                   into [200, 128]) and weight table (4,096 ids into
-                  [100,000, 3]); bitwise repeatability; kernel and plain
-                  times (CUDA events, median of 25).
+                  [100,000, 3]); PinSage's year and id tables (18,432 ids
+                  into [81, 8] and [3,706, 8]) and the two-tower's (1,024
+                  ids into [6,000, 32] and [3,700, 32]); bitwise
+                  repeatability; kernel and plain times (CUDA events,
+                  median of 25).
 4. k2           — K2 (forward and backward) against ``flash_mha_ref`` at
                   BST's shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a
                   real batch; fused forward and backward), at L 128 (fused)
@@ -150,6 +160,33 @@ Phases, one JSON line each (k2 one per shape):
 21. eges_cli    — ``cli.train_eges.main`` on the card (``--synthetic``): BGE,
                   GES, EGES and EGES with ``--shared_lr_scale 0.5``, each
                   scored by link prediction on intra-community pairs.
+22. eges_export — ``cli.train_eges --export --export_int8``: the bundle holds
+                  the trained model's corpus, quantized; ``cli.serve`` once.
+23. pinsage_train — PinSage at ``bench_pinsage`` width (6,040 users, 3,706
+                  items, 900,000 edges, embed 8, conv 64 / 32): b512 30
+                  steps on one resident batch, 50 with the native sampler
+                  in 3 prefetch threads, b32 50 steps; K1 exactly 4 a step;
+                  the sampler alone.
+24. pinsage_cli — ``cli.train_pinsage.main`` on the card (``--synthetic``,
+                  300 steps) exported f32, int8 and int8 + IVF, each served
+                  by ``cli.serve.main`` (``--items``, ``--all --out``):
+                  community similarity and hit-rate guards, int8 against
+                  f32 top-10 overlap and top-1, IVF at full probes equal
+                  to int8 brute force, 150 + ``--resume`` 150 bit for bit.
+25. twotower_cli — ``cli.train_twotower.main --data_dir`` at the RESULTS
+                  protocol's width (written as MovieLens files), exported
+                  int8 and served; ``tests/test_two_tower.py``'s set-up
+                  through the Trainer (hit rate > 0.25).
+26. serve_corpus — ``serve_topk`` on a 2M x 128 clustered corpus made on the
+                  card: f32 and int8 in-memory bundles, Q 1, 16, 256 and
+                  1,024, 200 requests each: p50 / p99 ms, requests/s, peak
+                  memory, bound, int8 against f32 overlap; the ids against
+                  a plain top-k of the whole product; IVF at ``exp_ivf.py
+                  --quick`` width: build seconds, spill share, recall
+                  against int8 brute force at 8 and 32 probes.
+27. retrieval_card_cpu — a small PinSage and a small two-tower, 3 steps each
+                  from one init on the card and on the CPU, then served:
+                  the losses must agree.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -201,7 +238,16 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from recommender_tpu_torch.cli import predict, train_ctr, train_dien, train_eges, train_esmm
+from recommender_tpu_torch.cli import (
+    predict,
+    serve,
+    train_ctr,
+    train_dien,
+    train_eges,
+    train_esmm,
+    train_pinsage,
+    train_twotower,
+)
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 from recommender_tpu_torch.data import (
     SyntheticCTR,
@@ -211,8 +257,10 @@ from recommender_tpu_torch.data import (
     criteo,
     dedup,
 )
-from recommender_tpu_torch.data.pipeline import with_dedup_plans
+from recommender_tpu_torch.data.movielens import ground_truth_matrix
+from recommender_tpu_torch.data.pipeline import prefetch_to_device, with_dedup_plans
 from recommender_tpu_torch.graph import WeightedGraph, native, skipgram_batches
+from recommender_tpu_torch.graph.bipartite import BipartiteGraph
 from recommender_tpu_torch.models import (
     BST,
     DIEN,
@@ -221,18 +269,39 @@ from recommender_tpu_torch.models import (
     EGES,
     ESMM,
     MMOE,
+    ItemFeatures,
+    PinSage,
+    TwoTower,
+    corpus_item_reprs,
     evaluate_head,
     init_model,
+    interaction_batches,
     link_prediction_auc,
     make_aux_loss_task,
     make_ctr_task,
     make_head_eval,
     make_multitask_task,
+    make_pinsage_task,
     make_skipgram_task,
+    make_two_tower_task,
+    pinsage_train_batches,
 )
 from recommender_tpu_torch.ops import _build
 from recommender_tpu_torch.ops import embedding_kernels as ek
 from recommender_tpu_torch.ops import flash_attention as fa
+from recommender_tpu_torch.retrieval import (
+    IVFIndex,
+    build_ivf,
+    export_serving_bundle,
+    full_corpus_reprs,
+    hit_rate,
+    load_serving_bundle,
+    quantize_reprs,
+    recommend_topk_from_queries,
+    search_ivf,
+    serve_topk,
+)
+from recommender_tpu_torch.retrieval import quantize as rq
 
 VOCAB = 1_000_000
 DIM = 16
@@ -389,10 +458,63 @@ EGES_CLI_RUNS = {"BGE": ("BGE",), "GES": ("GES",), "EGES": ("EGES",),
 EGES_CLI_K1_PER_STEP = {"BGE": 2, "GES": 4, "EGES": 5}
 EGES_CLI_AUC_MARGIN = {"BGE": 0.05, "GES": 0.4, "EGES": 0.4, "EGES_shared_0.5": 0.4}
 
+# PinSage at bench_models.py::bench_pinsage width (pinsage_ml1m): a random
+# MovieLens-1M-scale graph (6,040 users, 3,706 items, 900,000 edges, year
+# vocab 81, 18 genres), embed 8, conv 64 / 32, 3 neighbours from 4 walks of
+# length 2. b512: 30 steps on one resident batch (bench's devicestep),
+# then 50 with the native sampler in 3 prefetch threads; b32 (the
+# reference batch) 50 steps. K1 launches per step: the year and the id
+# table, each looked up for flat1 and for nbr2.
+PS_USERS, PS_ITEMS, PS_EDGES, PS_YEARS, PS_GENRES = 6040, 3706, 900_000, 81, 18
+PS_BATCH, PS_REF_BATCH, PS_DEVICE_STEPS, PS_STEPS = 512, 32, 30, 50
+PS_SAMPLER_WORKERS, PS_SAMPLER_BATCHES, PS_K1_PER_STEP = 3, 20, 4
+# cli.train_pinsage on its synthetic set (400 users, 200 items in 8
+# communities), b32 at the default lr: f32, int8 and int8 + IVF exports,
+# each served by cli.serve; 150 + --resume 150 against the straight run
+PS_CLI_STEPS = 300
+PS_CLI_ARGS = ("--synthetic", "--log_every", "100")
+PS_CLI_IVF_CLUSTERS = 8
+PS_CLI_COMMUNITIES = 8
+# The final hit rate must clear random retrieval (10 of the ~190 unseen
+# items, 0.05) by this margin, set from the first run on an H100 80GB HBM3
+# (700 W): 0.1675, as on the CPU; 0.07 leaves 0.05 of room
+PS_CLI_HIT_MARGIN = 0.07
+# int8 against f32 serving of one corpus (tests/test_export.py's floors)
+INT8_OVERLAP_MIN, INT8_TOP1_MIN = 0.9, 0.9
+# two-tower at the RESULTS protocol's width (benchmarks/quality_runs.py::
+# run_twotower: 6,000 users x 3,700 items in 32 communities, 20 interactions
+# a user, 85% in-community), written as MovieLens files and read by
+# cli.train_twotower --data_dir: b1024, embed 32, repr 32, tower (64,), lr
+# 3e-3; K1 launches per step: the user and item tables
+TT_USERS, TT_ITEMS, TT_COMMS, TT_PER_USER, TT_IN_COMM = 6000, 3700, 32, 20, 0.85
+TT_CLI_STEPS = 600
+TT_CLI_ARGS = ("--train_batch_size", "1024", "--learning_rate", "3e-3", "--log_every", "100")
+TT_K1_PER_STEP = 2
+# its final hit rate must clear this floor (random retrieval: 10 of ~3,680
+# unseen items, 0.003), set from the first run on that card: 0.0705
+TT_CLI_HIT_MIN = 0.04
+# tests/test_two_tower.py's learning set-up (embed 16, repr 16, tower (32,),
+# b256, lr 3e-3, 800 steps on the entry point's synthetic set) and its floor
+TT_TEST_STEPS, TT_TEST_HIT_MIN = 800, 0.25
+# serving at the TPU probes' width (benchmarks/exp_int8_retrieval.py,
+# exp_serving_latency.py): a clustered corpus of 2M x 128 (4,096 centres x 3
+# plus unit noise) made on the card from seed 0, queries of 1 to 1,024
+# corpus items, top-10 with the query item excluded; 200 requests per case
+SERVE_V, SERVE_D, SERVE_CENTRES, SERVE_K = 2_000_000, 128, 4096, 10
+SERVE_QS, SERVE_REQUESTS, SERVE_POOLS = (1, 16, 256, 1024), 200, 8
+# IVF at benchmarks/exp_ivf.py --quick width: 2^20 x 128 around 512 planted
+# centres (x 2, noise 0.5), 1,024 clusters, 8 Lloyd iterations, cap 1.5x;
+# 128 queries (a corpus row + noise 0.1) against int8 brute force
+IVF_V, IVF_CLUSTERS, IVF_TRUE_C, IVF_ITERS, IVF_Q, IVF_PROBES = 1 << 20, 1024, 512, 8, 128, (8, 32)
+# small PinSage and two-tower, card against CPU: PinSage is f32 throughout;
+# the two-tower's towers compute in bf16 (CARD_CPU_LOSS_TOL)
+PS_CARD_CPU_LOSS_TOL = 1e-5
+
 # H100 SXM peaks (NVIDIA data sheet, dense), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 TF32_FLOPS = 495e12  # TF32 on the tensor cores
+INT8_OPS = 1979e12  # int8 on the tensor cores
 
 K1_SOURCE = "recommender_tpu_torch/ops/csrc/sorted_scatter_add.cu"
 K1_REPLACES = "recommender_tpu/ops/embedding_kernels.py:213"
@@ -534,7 +656,8 @@ def _k1_ids_case(results, device, name, ids: np.ndarray, dim: int, vocab: int,
              upd.index_select(0, order.long()).float(), vocab, **info)
 
 
-def phase_k1(device, seq_batch: dict, mt_batch: dict, eges_batch: dict) -> dict:
+def phase_k1(device, seq_batch: dict, mt_batch: dict, eges_batch: dict, ps_batch: dict,
+             ps_year: np.ndarray, tt_batch: dict) -> dict:
     sorted_ids, order, upd = k1_inputs(device)
     upd_sorted = upd.index_select(0, order.long()).contiguous()
     upd_bf16 = upd.to(torch.bfloat16)
@@ -625,6 +748,16 @@ def phase_k1(device, seq_batch: dict, mt_batch: dict, eges_batch: dict) -> dict:
                                   ("eges_cat_f32_order", "target_cat", EGES_DIM, EGES_CATS),
                                   ("eges_weight_f32_order", "target", 3, EGES_V)):
         _k1_ids_case(results, device, name, eges_batch[key], dim, vocab)
+    # PinSage b512: the nbr2 lookups' backwards (18,432 ids) into the year
+    # table [81, 8] (runs of ~230 equal ids) and the id table [3,706, 8];
+    # two-tower b1024: the user [6,000, 32] and item [3,700, 32] tables
+    for name, ids, dim, vocab in (
+        ("pinsage_year_f32_order", ps_year[ps_batch["nbr2"]], 8, int(ps_year.max()) + 1),
+        ("pinsage_id_f32_order", ps_batch["nbr2"], 8, PS_ITEMS),
+        ("twotower_user_f32_order", tt_batch["user_id"], 32, TT_USERS),
+        ("twotower_item_f32_order", tt_batch["item_id"], 32, TT_ITEMS),
+    ):
+        _k1_ids_case(results, device, name, ids, dim, vocab)
     return results
 
 
@@ -1807,6 +1940,553 @@ def phase_eges_cli() -> int:
     return launches
 
 
+def phase_eges_export(device) -> int:
+    """``cli.train_eges --export --export_int8`` on the card: EGES, every
+    node's ``get_hidden`` as an int8 bundle, served once by ``cli.serve``."""
+    root = _build.BUILD_DIR / "eges_export"
+    shutil.rmtree(root, ignore_errors=True)
+    bundle = root / "eges_int8.npz"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, lines = _cli_run([*EGES_CLI_ARGS, "--model_type", "EGES", "--steps",
+                             str(EGES_CLI_STEPS), "--export", str(bundle), "--export_int8"],
+                            train_eges.main)
+    torch.cuda.synchronize()
+    launches = ek.sorted_scatter_add.launches
+    seconds = time.perf_counter() - t0
+    b = load_serving_bundle(str(bundle))
+    g, side, _ = train_eges._synthetic_graph(seed=SEED)
+    with torch.no_grad():
+        hidden = state.model.get_hidden({k: torch.as_tensor(v, device=device) for k, v in {
+            "target": np.arange(g.num_nodes), "target_cat": side["cat"],
+            "target_brand": side["brand"]}.items()}).cpu().numpy()
+    q, scale = quantize_reprs(hidden)
+    recs, served = _cli_run(["--bundle", str(bundle), "--items", "1,2,3"], serve.main)
+    emit("eges_export", steps=EGES_CLI_STEPS, k1_launches=launches, seconds=seconds,
+         bundle_keys=sorted(b), corpus=list(b["item_reprs_int8"].shape), served=served,
+         int8_rows_equal_the_model=bool(np.array_equal(b["item_reprs_int8"], q)))
+    shutil.rmtree(root, ignore_errors=True)
+    check(lines[-1] == {"exported": str(bundle)}, "EGES export line")
+    check(launches == EGES_CLI_K1_PER_STEP["EGES"] * EGES_CLI_STEPS,
+          f"EGES export run launched K1 {launches} times")
+    check(np.array_equal(b["item_reprs_int8"], q) and np.array_equal(b["item_scale"], scale),
+          "the int8 bundle is not the trained model's corpus")
+    check(recs.shape == (3, 10) and all(i not in r for i, r in zip((1, 2, 3), recs.tolist())),
+          f"cli.serve on the EGES bundle: {recs.tolist()}")
+    return launches
+
+
+# ------------------------------------------------------------ retrieval
+def pinsage_graph() -> tuple:
+    """bench_pinsage's graph and item features, draw for draw."""
+    rng = np.random.default_rng(SEED)
+    us = rng.integers(0, PS_USERS, PS_EDGES)
+    its = rng.integers(0, PS_ITEMS, PS_EDGES)
+    g = BipartiteGraph(us, its, PS_USERS, PS_ITEMS)
+    feats = ItemFeatures(year=rng.integers(0, PS_YEARS, PS_ITEMS).astype(np.int32),
+                         genre=(rng.random((PS_ITEMS, PS_GENRES)) < 0.2).astype(np.float32))
+    return g, feats
+
+
+def twotower_interactions() -> tuple:
+    """quality_runs.py::run_twotower's interactions, draw for draw: per
+    user, ``TT_PER_USER`` items, each from the user's community's block
+    with probability 0.85, else uniform."""
+    rng = np.random.default_rng(SEED)
+    u_comm = rng.integers(0, TT_COMMS, TT_USERS)
+    blocks = np.array_split(np.arange(TT_ITEMS), TT_COMMS)
+    us, its = [], []
+    for u in range(TT_USERS):
+        pool = blocks[u_comm[u]]
+        for _ in range(TT_PER_USER):
+            it = int(rng.choice(pool)) if rng.random() < TT_IN_COMM else int(rng.integers(TT_ITEMS))
+            us.append(u)
+            its.append(it)
+    return np.asarray(us), np.asarray(its)
+
+
+def write_movielens(root, us: np.ndarray, its: np.ndarray):
+    """The interactions as MovieLens-1M files: ratings.dat in draw order
+    (the timestamp is the draw's index, so a user's last draw is the
+    held-out test item) and movies.dat (one title with a year, one genre)."""
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / "ratings.dat", "w", encoding="latin-1") as f:
+        f.writelines(f"{u + 1}::{i + 1}::5::{t}\n" for t, (u, i) in enumerate(zip(us, its)))
+    with open(root / "movies.dat", "w", encoding="latin-1") as f:
+        f.writelines(f"{m + 1}::Movie {m + 1} ({1919 + m % 81})::Drama\n"
+                     for m in range(TT_ITEMS))
+
+
+def phase_pinsage_train(device, graph: tuple) -> int:
+    """PinSage at bench_pinsage width: b512 on one resident batch (a sync
+    at the end), then b512 with the sampler in prefetch threads and b32
+    with it in ``Trainer.fit``'s own (a sync at every step); the sampler
+    alone."""
+    g, feats = graph
+    check(native.is_available() and g.native, "the native graph sampler did not load")
+    out, launches = {}, 0
+
+    def make(batch):
+        model = init_model(PinSage(feats, device=device), seed=SEED)
+        trainer = Trainer(make_pinsage_task(model), TrainConfig(
+            learning_rate=LR, log_every=1, eval_every=0, seed=SEED), device=device)
+        it = pinsage_train_batches(g, batch, seed=SEED)
+        example = next(it)  # the init example, as cli.train_pinsage takes it
+        return trainer, trainer.init_state(lambda: model), it, example
+
+    # b512 on one resident batch: the device step alone (bench's devicestep)
+    trainer, state, _, example = make(PS_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    resident = trainer.put_batch(example)
+    state, m = trainer.train_step(state, resident)
+    float(m["loss"])
+    t0 = time.perf_counter()
+    device_losses = []
+    for _ in range(PS_DEVICE_STEPS):
+        state, m = trainer.train_step(state, resident)
+        device_losses.append(m["loss"])
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) / PS_DEVICE_STEPS * 1e3
+    device_losses = [float(x) for x in device_losses]
+    resident_launches = ek.sorted_scatter_add.launches
+    check(resident_launches == PS_K1_PER_STEP * (1 + PS_DEVICE_STEPS),
+          f"PinSage resident steps launched K1 {resident_launches} times")
+    check(all(math.isfinite(x) for x in device_losses), "non-finite PinSage loss")
+    check(device_losses[-1] < device_losses[0],
+          f"PinSage loss on one batch did not fall: {device_losses}")
+    out["b512_devicestep"] = dict(steps=PS_DEVICE_STEPS, ms_per_step=device_ms,
+                                  examples_per_s=PS_BATCH / device_ms * 1e3,
+                                  losses=device_losses, k1_launches=resident_launches)
+    launches += resident_launches
+
+    for name, batch, workers in (("b512_endtoend", PS_BATCH, PS_SAMPLER_WORKERS),
+                                 ("b32_endtoend", PS_REF_BATCH, 1)):
+        if name.startswith("b32"):
+            trainer, state, it, _ = make(batch)
+        stamps, losses = [], []
+
+        def log_fn(m):
+            stamps.append(time.perf_counter())
+            losses.append(m["loss"])
+
+        if workers > 1:  # iid sampler streams, one thread each (bench_pinsage's)
+            stream = prefetch_to_device(
+                workers=[pinsage_train_batches(g, batch, seed=s) for s in range(1, 1 + workers)],
+                size=4)
+            prefetch = 0
+        else:
+            stream, prefetch = it, 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            with host_times() as host:
+                state, _ = trainer.fit(state, stream, PS_STEPS, log_fn=log_fn, prefetch=prefetch)
+        finally:
+            if workers > 1:
+                stream.close()
+        torch.cuda.synchronize()
+        n = ek.sorted_scatter_add.launches
+        step_ms = (np.diff(np.array(stamps)) * 1e3)[-TIMED_STEPS:]
+        med = float(np.median(step_ms))
+        sampler = pinsage_train_batches(g, batch, seed=SEED + 7)
+        next(sampler)
+        t0 = time.perf_counter()
+        for _ in range(PS_SAMPLER_BATCHES):
+            next(sampler)
+        sampler_ms = (time.perf_counter() - t0) / PS_SAMPLER_BATCHES * 1e3
+        out[name] = dict(steps=PS_STEPS, sampler_threads=workers, losses=losses,
+                         ms_per_step_median=med, ms_per_step_min=float(step_ms.min()),
+                         ms_per_step_max=float(step_ms.max()),
+                         examples_per_s=batch / med * 1e3,
+                         host_enqueue_ms_median=float(np.median(host["enqueue"][-TIMED_STEPS:])),
+                         host_put_ms_median=float(np.median(host["put"][-TIMED_STEPS:])),
+                         sampler_ms_per_batch=sampler_ms,
+                         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         k1_launches=n)
+        check(len(losses) == PS_STEPS and all(math.isfinite(x) for x in losses),
+              f"PinSage {name} losses: {losses}")
+        check(n == PS_K1_PER_STEP * PS_STEPS, f"PinSage {name} launched K1 {n} times")
+        launches += n
+    emit("pinsage_train", users=PS_USERS, items=PS_ITEMS, edges=PS_EDGES, years=PS_YEARS,
+         genres=PS_GENRES, embed=8, conv=(64, 32), neighbours=3, walks=4, walk_length=2,
+         native_sampler=g.native, k1_per_step=PS_K1_PER_STEP, runs=out)
+    return launches
+
+
+def _overlap(a: np.ndarray, b: np.ndarray) -> float:
+    k = a.shape[1]
+    return float(np.mean([len(set(x.tolist()) & set(y.tolist())) / k for x, y in zip(a, b)]))
+
+
+def _same_up_to_ties(got: np.ndarray, want: np.ndarray, scores: np.ndarray) -> int:
+    """Rows where ``got`` and ``want`` differ other than by ids of equal
+    score (``scores`` [Q, V])."""
+    bad = 0
+    for row, a, b in zip(scores, got, want):
+        if not np.array_equal(a, b) and not np.array_equal(row[a], row[b]):
+            bad += 1
+    return bad
+
+
+def _int8_item_scores(bundle: dict, ids: np.ndarray) -> np.ndarray:
+    q = torch.from_numpy(bundle["item_reprs_int8"])
+    scale = torch.from_numpy(bundle["item_scale"])
+    return rq.scores_int8(q[torch.from_numpy(ids)], q, scale).numpy()
+
+
+def phase_pinsage_cli() -> int:
+    """``cli.train_pinsage.main`` on the card (its synthetic set): the f32,
+    int8 and int8 + IVF exports, each served by ``cli.serve.main``
+    (``--items``, ``--all --out``, ``--probes``); community similarity
+    and hit-rate guards; 150 steps + ``--resume`` 150 against the straight
+    run, bit for bit."""
+    root = _build.BUILD_DIR / "pinsage_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    runs, served, launches = {}, {}, 0
+    states = {}
+    for name, flags in (("f32", ()), ("int8", ("--export_int8",)),
+                        ("ivf", ("--export_int8", "--export_ivf_clusters",
+                                 str(PS_CLI_IVF_CLUSTERS)))):
+        bundle = root / f"{name}.npz"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, lines = _cli_run([*PS_CLI_ARGS, "--steps", str(PS_CLI_STEPS), "--export",
+                                 str(bundle), *flags], train_pinsage.main)
+        torch.cuda.synchronize()
+        n = ek.sorted_scatter_add.launches
+        launches += n
+        states[name] = state
+        final = next(m for m in lines if m.get("final"))
+        runs[name] = dict(losses=[m["loss"] for m in lines if "loss" in m],
+                          hit_rate=final["hit_rate"], k1_launches=n,
+                          seconds=time.perf_counter() - t0,
+                          device=str(next(state.model.parameters()).device))
+        check(runs[name]["device"].startswith("cuda"), f"{name}: the CLI did not run on the card")
+        check(n == PS_K1_PER_STEP * PS_CLI_STEPS, f"pinsage_cli {name}: K1 launched {n} times")
+        check(lines[-1] == {"exported": str(bundle)}, f"pinsage_cli {name}: no export line")
+        check(final["hit_rate"] > 0.05 + PS_CLI_HIT_MARGIN,
+              f"pinsage_cli {name}: hit_rate {final['hit_rate']} <= 0.05 + {PS_CLI_HIT_MARGIN}")
+        recs, items = _cli_run(["--bundle", str(bundle), "--items", "0,1,2"], serve.main)
+        every, done = _cli_run(["--bundle", str(bundle), "--all", "--out",
+                                str(root / f"{name}_recs.npz")], serve.main)
+        saved = np.load(root / f"{name}_recs.npz")["recommendations"]
+        check(recs.shape == (3, 10) and every.shape == (200, 10), f"{name}: served shapes")
+        check(np.array_equal(saved, every) and np.array_equal(every[:3], recs),
+              f"{name}: --all --out and --items disagree")
+        check(not (every == np.arange(200)[:, None]).any(), f"{name}: an item recommends itself")
+        served[name] = dict(items=items, all=done, recs=every)
+    f32 = load_serving_bundle(str(root / "f32.npz"))
+    int8 = load_serving_bundle(str(root / "int8.npz"))
+    reprs = f32["item_reprs"]
+    comm = np.repeat(np.arange(PS_CLI_COMMUNITIES), 200 // PS_CLI_COMMUNITIES)
+    sims = reprs @ reprs.T
+    intra = float(sims[comm[:, None] == comm[None, :]].mean())
+    inter = float(sims[comm[:, None] != comm[None, :]].mean())
+    q, scale = quantize_reprs(reprs)
+    same_corpus = bool(np.array_equal(int8["item_reprs_int8"], q)
+                       and np.array_equal(int8["item_scale"], scale))
+    overlap = _overlap(served["int8"]["recs"], served["f32"]["recs"])
+    top1 = float(np.mean(served["int8"]["recs"][:, 0] == served["f32"]["recs"][:, 0]))
+    ivf_bundle = root / "ivf.npz"
+    ivf_recs, ivf_lines = _cli_run(["--bundle", str(ivf_bundle), "--all", "--probes",
+                                    str(PS_CLI_IVF_CLUSTERS)], serve.main)
+    ivf_b = load_serving_bundle(str(ivf_bundle))
+    ivf_rows_apart = _same_up_to_ties(ivf_recs, served["ivf"]["recs"],
+                                      _int8_item_scores(ivf_b, np.arange(200)))
+    ivf_rows_differing = int((ivf_recs != served["ivf"]["recs"]).any(1).sum())
+    # resume: half the steps, then --resume for the rest, against the f32 run
+    ckpt = ["--checkpoint_dir", str(root / "ckpt")]
+    half = PS_CLI_STEPS // 2
+    reset_counts()
+    _cli_run([*PS_CLI_ARGS, "--steps", str(half), *ckpt], train_pinsage.main)
+    resumed, _ = _cli_run([*PS_CLI_ARGS, "--steps", str(PS_CLI_STEPS - half), "--resume", *ckpt],
+                          train_pinsage.main)
+    torch.cuda.synchronize()
+    resume_launches = ek.sorted_scatter_add.launches
+    launches += resume_launches
+    want, got = states["f32"].model.state_dict(), resumed.model.state_dict()
+    differing = [k for k in want if not torch.equal(want[k], got[k])]
+    moments = states["f32"].optimizer.state_dict(), resumed.optimizer.state_dict()
+    differing += [f"{w}[{i}]" for w in ("mu", "nu")
+                  for i, (a, b) in enumerate(zip(moments[0][w], moments[1][w]))
+                  if not torch.equal(a, b)]
+    emit("pinsage_cli", args=list(PS_CLI_ARGS), steps=PS_CLI_STEPS, runs=runs,
+         hit_margin=PS_CLI_HIT_MARGIN, intra_community_sim=intra, inter_community_sim=inter,
+         int8_bundle_is_the_f32_corpus=same_corpus, int8_f32_top10_overlap=overlap,
+         int8_f32_top1_agree=top1, ivf_full_probes_rows_differing=ivf_rows_differing,
+         ivf_full_probes_rows_apart_beyond_ties=ivf_rows_apart, ivf_serve_lines=ivf_lines,
+         served={k: {"items": v["items"], "all": v["all"]} for k, v in served.items()},
+         resume_k1_launches=resume_launches, resumed_step=resumed.step,
+         tensors_differing_after_resume=differing)
+    shutil.rmtree(root, ignore_errors=True)
+    check(intra > inter, f"PinSage reprs: intra-community {intra} <= inter {inter}")
+    check(same_corpus, "the int8 run trained another corpus than the f32 run")
+    check(overlap >= INT8_OVERLAP_MIN, f"int8 vs f32 top-10 overlap {overlap}")
+    check(top1 >= INT8_TOP1_MIN, f"int8 vs f32 top-1 agreement {top1}")
+    check(ivf_rows_apart == 0, f"IVF at full probes differs from int8 brute force in "
+                               f"{ivf_rows_apart} rows beyond ties")
+    check(resume_launches == PS_K1_PER_STEP * PS_CLI_STEPS,
+          f"pinsage_cli resume runs launched K1 {resume_launches} times")
+    check(resumed.step == PS_CLI_STEPS and not differing,
+          f"resumed PinSage differs from the straight run in {differing}")
+    return launches
+
+
+def phase_twotower_cli(device) -> int:
+    """``cli.train_twotower.main --data_dir`` on the card at the RESULTS
+    protocol's width (MovieLens files written from its interactions),
+    exported int8 and served once; then tests/test_two_tower.py's set-up
+    through the Trainer, against its hit-rate floor."""
+    root = _build.BUILD_DIR / "twotower_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    write_movielens(root / "data", *twotower_interactions())
+    bundle = root / "tt_int8.npz"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, lines = _cli_run(["--data_dir", str(root / "data"), *TT_CLI_ARGS, "--steps",
+                             str(TT_CLI_STEPS), "--export", str(bundle), "--export_int8"],
+                            train_twotower.main)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cli_launches = ek.sorted_scatter_add.launches
+    final = next(m for m in lines if m.get("final"))
+    b = load_serving_bundle(str(bundle))
+    recs, served = _cli_run(["--bundle", str(bundle), "--items", "0,1,2,3"], serve.main)
+    check(next(state.model.parameters()).device.type == "cuda", "two-tower CLI not on the card")
+    check(cli_launches == TT_K1_PER_STEP * TT_CLI_STEPS,
+          f"two-tower CLI launched K1 {cli_launches} times")
+    check(final["hit_rate"] > TT_CLI_HIT_MIN,
+          f"two-tower CLI hit rate {final['hit_rate']} <= {TT_CLI_HIT_MIN}")
+    check(b["item_reprs_int8"].shape == (TT_ITEMS, 32) and recs.shape == (4, 10),
+          "two-tower bundle or serving shapes")
+    # tests/test_two_tower.py's learning set-up, through the Trainer
+    g, test_item, seen = train_twotower._synthetic(seed=SEED)
+    model = init_model(TwoTower(user_vocab=g.num_users, item_vocab=g.num_items, embed_dim=16,
+                                repr_dim=16, tower_units=(32,), device=device), seed=SEED)
+    loss_fn, eval_fn = make_two_tower_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=3e-3, log_every=100, seed=SEED),
+                      eval_fn, device=device)
+    it = interaction_batches(g, 256, seed=SEED)
+    next(it)
+    reset_counts()
+    t1 = time.perf_counter()
+    test_state, hist = trainer.fit(trainer.init_state(lambda: model), it, TT_TEST_STEPS)
+    test_launches = ek.sorted_scatter_add.launches
+    reprs = corpus_item_reprs(model, g.num_items)
+    test_recs = recommend_topk_from_queries(train_twotower.user_reprs(model, g.num_users), reprs,
+                                            seen, k=10, device=device)
+    test_hr = hit_rate(test_recs, ground_truth_matrix(test_item, g.num_items))
+    emit("twotower_cli", users=TT_USERS, items=TT_ITEMS, communities=TT_COMMS,
+         args=list(TT_CLI_ARGS), steps=TT_CLI_STEPS, log=[m for m in lines if "loss" in m],
+         hit_rate=final["hit_rate"], seconds=seconds, k1_launches=cli_launches, served=served,
+         test_setup=dict(steps=TT_TEST_STEPS, losses=[h["loss"] for h in hist],
+                         hit_rate=test_hr, floor=TT_TEST_HIT_MIN, k1_launches=test_launches,
+                         seconds=time.perf_counter() - t1))
+    shutil.rmtree(root, ignore_errors=True)
+    check(test_launches == TT_K1_PER_STEP * TT_TEST_STEPS,
+          f"two-tower test set-up launched K1 {test_launches} times")
+    check(test_hr > TT_TEST_HIT_MIN, f"two-tower hit rate {test_hr} <= {TT_TEST_HIT_MIN}")
+    check(not any(seen[u][test_recs[u]].any() for u in range(g.num_users)),
+          "two-tower recommended a seen item")
+    return cli_launches + test_launches
+
+
+def quantize_on_card(r: torch.Tensor) -> tuple:
+    """``quantize_reprs`` on the card (the same formula), for a corpus that
+    never leaves it."""
+    amax = torch.amax(torch.abs(r), dim=1)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which rounds some quotients apart from numpy's
+    scale = amax / amax.new_tensor(127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(r / safe[:, None]), -127, 127).to(torch.int8)
+    q[scale == 0] = 0
+    return q, scale
+
+
+def _percentiles(ms: list) -> dict:
+    a = np.asarray(ms)
+    return {"p50_ms": float(np.percentile(a, 50)), "p99_ms": float(np.percentile(a, 99)),
+            "mean_ms": float(a.mean())}
+
+
+def phase_serve_corpus(device) -> dict:
+    """``serve_topk`` at the TPU probes' width: an in-memory f32 and int8
+    bundle of a 2M x 128 clustered corpus on the card, by query batch;
+    then IVF at exp_ivf.py --quick width."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    centres = torch.randn((SERVE_CENTRES, SERVE_D), generator=g, device=device) * 3
+    assign = torch.randint(0, SERVE_CENTRES, (SERVE_V,), generator=g, device=device)
+    corpus = centres[assign] + torch.randn((SERVE_V, SERVE_D), generator=g, device=device)
+    del centres, assign
+    q8, scale = quantize_on_card(corpus)
+    head = corpus[:20_000].cpu().numpy()
+    want_q, want_scale = quantize_reprs(head)
+    check(np.array_equal(q8[:20_000].cpu().numpy(), want_q)
+          and np.array_equal(scale[:20_000].cpu().numpy(), want_scale),
+          "the card's quantization differs from quantize_reprs")
+    bundles = {"f32": {"item_reprs": corpus}, "int8": {"item_reprs_int8": q8, "item_scale": scale}}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(SEED)
+    cases = {}
+    for Q in SERVE_QS:
+        pools = [rng.integers(0, SERVE_V, Q) for _ in range(SERVE_POOLS)]
+        outs = {}
+        for kind, bundle in bundles.items():
+            for i in range(3):
+                serve_topk(bundle, pools[i], SERVE_K)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, last = [], {}
+            for i in range(SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                ids = serve_topk(bundle, pools[i % SERVE_POOLS], SERVE_K)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                last[i % SERVE_POOLS] = ids
+            peak = torch.cuda.max_memory_allocated()
+            corpus_bytes = sum(t.numel() * t.element_size() for t in bundle.values())
+            ops = 2.0 * Q * SERVE_V * SERVE_D
+            rate = F32_FLOPS if kind == "f32" else INT8_OPS
+            n_bytes = corpus_bytes + Q * (SERVE_D * 4 + SERVE_K * 4)
+            bound_ms = max(n_bytes / HBM_BYTES_PER_S, ops / rate) * 1e3
+            p = _percentiles(ms)
+            outs[kind] = last
+            cases[f"{kind}_q{Q}"] = dict(
+                **p, requests=SERVE_REQUESTS, requests_per_s_at_p50=1e3 / p["p50_ms"],
+                queries_per_s_at_p50=Q * 1e3 / p["p50_ms"], bound_ms=bound_ms,
+                bound_by="bytes" if n_bytes / HBM_BYTES_PER_S >= ops / rate else "operations",
+                peak_memory_gib=peak / 2**30, above_resident_gib=(peak - resident) / 2**30,
+                corpus_gib=corpus_bytes / 2**30)
+            check(all(o.shape == (Q, SERVE_K) for o in last.values()), f"{kind} Q{Q} shapes")
+            check(all(not (o == p_[:, None]).any() for o, p_ in zip(
+                (last[i] for i in range(SERVE_POOLS)), pools)), f"{kind} Q{Q}: self retrieved")
+        cases[f"int8_q{Q}"]["int8_f32_top10_overlap"] = float(np.mean(
+            [_overlap(outs["int8"][i], outs["f32"][i]) for i in range(SERVE_POOLS)]))
+    # where a request's time goes at the largest Q: one block of rows, its
+    # product (int8: with the int32 → f32 scaling) and its top-k alone
+    Q = SERVE_QS[-1]
+    rows = rq.block_rows(Q, SERVE_V)
+    ids = torch.from_numpy(rng.integers(0, SERVE_V, Q)).to(device)
+    qf, qq = corpus[ids], q8[ids]
+    block_scores = qf @ corpus[:rows].T
+    breakdown = dict(
+        Q=Q, block_rows=rows, blocks=-(-SERVE_V // rows),
+        f32_product_ms=cuda_ms(lambda: qf @ corpus[:rows].T, iters=10),
+        int8_product_ms=cuda_ms(lambda: rq.scores_int8(qq, q8[:rows], scale[:rows]), iters=10),
+        topk_ms=cuda_ms(lambda: torch.topk(block_scores, SERVE_K + 1, dim=1), iters=10))
+    del block_scores
+    # the plain reference on one pool of 16 queries: the whole [Q, V] product
+    ids = torch.from_numpy(rng.integers(0, SERVE_V, 16)).to(device)
+    rows = torch.arange(16, device=device)
+    plain = {}
+    sim = corpus[ids] @ corpus.T
+    sim[rows, ids] = float("-inf")
+    plain["f32"] = torch.topk(sim, SERVE_K, dim=1).indices.cpu().numpy()
+    sim = (q8[ids].float() @ q8.float().T) * scale[None, :]
+    sim[rows, ids] = float("-inf")
+    plain["int8"] = torch.topk(sim, SERVE_K, dim=1).indices.cpu().numpy()
+    del sim
+    agree = {k: bool(np.array_equal(serve_topk(bundles[k], ids.cpu().numpy(), SERVE_K), v))
+             for k, v in plain.items()}
+    del bundles, corpus, q8, scale
+    torch.cuda.empty_cache()
+
+    # IVF at exp_ivf.py --quick width (numpy data from seed 0, as there)
+    rng = np.random.default_rng(SEED)
+    centres = (rng.normal(size=(IVF_TRUE_C, SERVE_D)) * 2.0).astype(np.float32)
+    reprs = (centres[rng.integers(0, IVF_TRUE_C, IVF_V)]
+             + rng.normal(size=(IVF_V, SERVE_D)).astype(np.float32) * 0.5).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_ivf(reprs, IVF_CLUSTERS, capacity_factor=1.5, iters=IVF_ITERS, seed=1,
+                      device=device)
+    build_s = time.perf_counter() - t0
+    spilled = int((index.spill_ids >= 0).sum())
+    on_card = index.to(device)
+    q8i, sci = (torch.from_numpy(x).to(device) for x in quantize_reprs(reprs))
+    queries = torch.from_numpy(reprs[rng.integers(0, IVF_V, IVF_Q)]
+                               + rng.normal(size=(IVF_Q, SERVE_D)).astype(np.float32) * 0.1
+                               ).to(device)
+    qq = rq.quantize_queries(queries)
+
+    def brute():
+        return rq.topk_ids(lambda a, b: rq.scores_int8(qq, q8i[a:b], sci[a:b]), IVF_V, IVF_Q,
+                           SERVE_K)
+
+    brute_ids = brute().cpu().numpy()
+    ivf = dict(V=IVF_V, clusters=IVF_CLUSTERS, iters=IVF_ITERS, build_s=build_s, cap=index.cap,
+               spilled=spilled, spill_share=spilled / IVF_V,
+               index_mib=index.nbytes() / 2**20, queries=IVF_Q,
+               brute_int8_ms=cuda_ms(brute, iters=10, warmup=2))
+    for probes in IVF_PROBES:
+        got = search_ivf(on_card, queries, k=SERVE_K, probes=probes)[0].cpu().numpy()
+        ivf[f"probes_{probes}"] = dict(
+            recall_vs_int8_brute=_overlap(got, brute_ids),
+            ms=cuda_ms(lambda: search_ivf(on_card, queries, k=SERVE_K, probes=probes),
+                       iters=10, warmup=2),
+            candidates=probes * index.cap + len(index.spill_ids))
+    emit("serve_corpus", V=SERVE_V, D=SERVE_D, centres=SERVE_CENTRES, k=SERVE_K,
+         resident_gib=resident / 2**30, cases=cases, breakdown=breakdown, plain_agrees=agree,
+         ivf=ivf)
+    check(all(agree.values()), f"serve_topk disagrees with the plain top-k: {agree}")
+    check(ivf[f"probes_{IVF_PROBES[-1]}"]["recall_vs_int8_brute"]
+          >= ivf[f"probes_{IVF_PROBES[0]}"]["recall_vs_int8_brute"] - 0.02,
+          "IVF recall fell with more probes")
+    return cases
+
+
+def phase_retrieval_card_cpu(device):
+    """A small PinSage and a small two-tower, 3 steps each from one init on
+    the card and on the CPU, then served: the largest differences."""
+    g, feats, _, _, _ = train_pinsage._synthetic(SEED)
+    it = pinsage_train_batches(g, 32, seed=SEED)
+    ps_batches = [next(it) for _ in range(3)]
+    tg, _, _ = train_twotower._synthetic(SEED)
+    it = interaction_batches(tg, 128, seed=SEED)
+    tt_batches = [next(it) for _ in range(3)]
+    out = {}
+    for name, make, task, batches, tol in (
+        ("pinsage", lambda d: PinSage(feats, embed_dim=8, conv_hidden=16, conv_out=16, device=d),
+         lambda m: (make_pinsage_task(m), None), ps_batches, PS_CARD_CPU_LOSS_TOL),
+        ("two_tower", lambda d: TwoTower(tg.num_users, tg.num_items, embed_dim=16, repr_dim=16,
+                                         device=d),
+         make_two_tower_task, tt_batches, CARD_CPU_LOSS_TOL),
+    ):
+        init = init_model(make(torch.device("cpu")), seed=SEED).state_dict()
+        result = {}
+        for where in ("card", "cpu"):
+            dev = device if where == "card" else torch.device("cpu")
+            model = make(dev)
+            model.load_state_dict(init)
+            losses = _small_fit_losses(lambda d, m=model: m, model.state_dict(), task, batches,
+                                       dev)
+            if name == "pinsage":
+                reprs = full_corpus_reprs(model, g, np.random.default_rng(1), batch_size=64)
+            else:
+                reprs = corpus_item_reprs(model, tg.num_items)
+            q, sc = quantize_reprs(reprs)
+            bundle = {"item_reprs_int8": torch.from_numpy(q).to(dev),
+                      "item_scale": torch.from_numpy(sc).to(dev)}
+            result[where] = dict(losses=losses, reprs=reprs,
+                                 recs=serve_topk(bundle, np.arange(len(reprs)), 10))
+        loss_diff = max(abs(a - b) for a, b in zip(result["card"]["losses"],
+                                                   result["cpu"]["losses"]))
+        repr_diff = float(np.abs(result["card"]["reprs"] - result["cpu"]["reprs"]).max())
+        overlap = _overlap(result["card"]["recs"], result["cpu"]["recs"])
+        out[name] = dict(card_losses=result["card"]["losses"], cpu_losses=result["cpu"]["losses"],
+                         max_abs_loss_diff=loss_diff, max_abs_repr_diff=repr_diff,
+                         served_top10_overlap=overlap, loss_tolerance=tol)
+        check(loss_diff <= tol, f"{name} card vs CPU losses differ by {loss_diff}")
+    emit("retrieval_card_cpu", **out)
+
+
 # kernel-name fragments for the profile's parts, matched in this order
 PROFILE_PARTS = (
     ("k2_fwd", ("flash_fwd_",)),
@@ -2132,8 +2812,13 @@ def main() -> int:
     bst_train, bst_test = without_negatives(seq_train), without_negatives(seq_test)
     mt_train, mt_test = multitask_data()
     graph = eges_graph()
+    ps_graph = pinsage_graph()
+    tt_us, tt_its = twotower_interactions()
+    tt_graph = BipartiteGraph(tt_us, tt_its, TT_USERS, TT_ITEMS)
     k1 = phase_k1(device, {k: v[:BST_BATCH] for k, v in seq_train.items()},
-                  {k: v[:MT_BATCH] for k, v in mt_train.items()}, next(eges_stream(*graph)))
+                  {k: v[:MT_BATCH] for k, v in mt_train.items()}, next(eges_stream(*graph)),
+                  next(pinsage_train_batches(ps_graph[0], PS_BATCH, seed=SEED)),
+                  ps_graph[1].year, next(interaction_batches(tt_graph, 1024, seed=SEED)))
     k2_cases = k2_shapes(device, bst_train)
     k2 = {}
     for key, (case, valid, head_dim, route) in k2_cases.items():
@@ -2160,7 +2845,16 @@ def main() -> int:
     esmm_cli_k1 = phase_esmm_cli()
     eges_k1 = phase_eges_train(device, graph)
     eges_cli_k1 = phase_eges_cli()
+    eges_export_k1 = phase_eges_export(device)
     emit("multitask_graph_phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    retrieval_k1 = {"pinsage": phase_pinsage_train(device, ps_graph),
+                    "pinsage_cli": phase_pinsage_cli(),
+                    "twotower": phase_twotower_cli(device),
+                    "eges_export": eges_export_k1}
+    phase_serve_corpus(device)
+    phase_retrieval_card_cpu(device)
+    emit("retrieval_phases", seconds=time.perf_counter() - t0)
     ctr_k1 = {"ctr_cli": ctr["dlrm"]["k1_launches"] + ctr["dlrm_again"]["k1_launches"],
               "ctr_cli_dedup": (ctr["dlrm_dedup"]["k1_launches"]
                                 + ctr["dlrm_dedup_again"]["k1_launches"]),
@@ -2177,12 +2871,13 @@ def main() -> int:
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         # DLRM run + the two BST runs + the DIEN, DIN, long-DIEN and CLI runs
-        # + the CTR, multi-task and graph runs and entry points
+        # + the CTR, multi-task, graph and retrieval runs and entry points
         "launches": (dlrm_k1 + bst_launches["k1"] + long_launches["k1"] + dien_k1 + din_k1
-                     + dien_long_k1 + cli_k1 + sum(ctr_k1.values()) + sum(graph_k1.values())),
+                     + dien_long_k1 + cli_k1 + sum(ctr_k1.values()) + sum(graph_k1.values())
+                     + sum(retrieval_k1.values())),
         "launches_by_path": dict(dlrm=dlrm_k1, bst=bst_launches["k1"], bst_long=long_launches["k1"],
                                  dien=dien_k1, din=din_k1, dien_long=dien_long_k1,
-                                 dien_cli=cli_k1, **ctr_k1, **graph_k1),
+                                 dien_cli=cli_k1, **ctr_k1, **graph_k1, **retrieval_k1),
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2209,6 +2904,12 @@ def main() -> int:
         **{f"{case}_{key}": k1[f"{case}_order"][key]
            for case in ("mmoe_table_f32", "mmoe_table_bf16", "mmoe_stacked_f32",
                         "eges_output_f32", "eges_cat_f32", "eges_weight_f32")
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        # PinSage b512's nbr2 lookups into the year [81, 8] and id [3,706, 8]
+        # tables; two-tower b1024's user [6,000, 32] and item [3,700, 32]
+        **{f"{case}_{key}": k1[f"{case}_order"][key]
+           for case in ("pinsage_year_f32", "pinsage_id_f32", "twotower_user_f32",
+                        "twotower_item_f32")
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     # each K2 kernel at the shape of its main path: the fused forward and

@@ -16,12 +16,15 @@ first batch is the init example and training starts at the second. With
 ``--meta_file`` (Amazon metadata JSON lines) the held-out edges are scored
 at the end and the final line holds ``link_prediction_auc``.
 ``--shared_lr_scale`` scales the shared cat and brand tables' updates
-(``TrainConfig.lr_scales``) for GES and EGES. ``--export`` and
-``--export_int8`` need the retrieval slice and are refused.
+(``TrainConfig.lr_scales``) for GES and EGES. ``--export`` writes every
+node's ``get_hidden`` as a serving bundle (int8 with ``--export_int8``),
+computed in blocks of at most 2^20 nodes so that device memory holds one
+block's side stacks, not the whole corpus's.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from recommender_tpu_torch.cli.common import (
     base_parser,
@@ -35,8 +38,7 @@ from recommender_tpu_torch.graph.store import WeightedGraph
 from recommender_tpu_torch.graph.walks import skipgram_batches
 from recommender_tpu_torch.models.eges import EGES, GES, DeepWalk
 from recommender_tpu_torch.models.tasks import init_model, link_prediction_auc, make_skipgram_task
-
-_RETRIEVAL = "the serving bundle needs the retrieval slice (export, int8), which is not ported yet"
+from recommender_tpu_torch.retrieval.export import export_serving_bundle
 
 
 def _synthetic_graph(num_nodes=2000, num_comm=16, seed=0):
@@ -61,6 +63,26 @@ def _synthetic_graph(num_nodes=2000, num_comm=16, seed=0):
     return g, side, comm
 
 
+@torch.no_grad()
+def corpus_hidden(model, num_nodes: int, side: dict | None, block: int = 1 << 20) -> np.ndarray:
+    """[V, D] ``get_hidden`` of every node (the eval forward), in blocks of
+    ``block`` ids; the last block padded with node 0, as in JAX."""
+    device = next(model.parameters()).device
+    model.eval()
+    block = min(block, num_nodes)
+    chunks = []
+    for s0 in range(0, num_nodes, block):
+        n = min(block, num_nodes - s0)
+        ids = np.pad(np.arange(s0, s0 + n, dtype=np.int32), (0, block - n))
+        b = {"target": ids}
+        if side is not None:
+            b["target_cat"] = side["cat"][ids]
+            b["target_brand"] = side["brand"][ids]
+        b = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        chunks.append(model.get_hidden(b).cpu().numpy()[:n])
+    return np.concatenate(chunks, axis=0)
+
+
 def main(argv=None):
     p = base_parser("Graph item-embedding training (BGE/GES/EGES)")
     p.add_argument("--model_type", choices=["BGE", "GES", "EGES"], default="EGES")
@@ -70,15 +92,13 @@ def main(argv=None):
     p.add_argument("--num_negatives", type=int, default=5)
     p.add_argument("--meta_file", type=str, default="")
     p.add_argument("--export", type=str, default="",
-                   help="not ported yet (the retrieval slice): refused when set")
+                   help="write a serving bundle (npz) of every node's hidden vector")
     p.add_argument("--export_int8", action="store_true",
-                   help="not ported yet (the retrieval slice): refused when set")
+                   help="with --export: quantize the corpus to int8 + per-row scales")
     p.add_argument("--shared_lr_scale", type=float, default=1.0,
                    help="GES/EGES: multiply the shared side tables' (cat, brand) updates "
                         "after Adam by this factor; 1.0 = reference semantics")
     args = parse_args(p, argv)
-    if args.export or args.export_int8:
-        raise SystemExit(f"--export / --export_int8: {_RETRIEVAL}")
     if args.shared_lr_scale != 1.0 and args.model_type != "BGE":
         args.lr_scales = {
             "cat_embedding": args.shared_lr_scale,
@@ -133,6 +153,13 @@ def main(argv=None):
     if triples is not None:
         auc = link_prediction_auc(model, triples)
         log({"final": 1, "link_prediction_auc": auc})
+    if args.export:
+        export_serving_bundle(
+            args.export, corpus_hidden(model, g.num_nodes, side if use_side else None),
+            metadata={"model": args.model_type, "embed_dim": args.embedding_size},
+            quantize=args.export_int8, device=device,
+        )
+        log({"exported": args.export})
     if args.checkpoint_dir:
         trainer.save(state)
     return state

@@ -1,13 +1,14 @@
 """ctypes bindings for the native graph sampler (``native/libgraph_sampler.so``).
 
-A copy of the alias-table and walk bindings of
-``recommender_tpu/graph/native.py`` (the JAX package's ``graph`` namespace
-imports jax on load); the PinSage samplers' bindings come with the PinSage
-slice. The library is the same file the JAX package loads.
+A copy of ``recommender_tpu/graph/native.py`` (the JAX package's ``graph``
+namespace imports jax on load): the alias-table and walk bindings and the
+PinSage samplers' (importance neighbours, the item→user→item metapath).
+The library is the same file the JAX package loads.
 
 Auto-builds with ``make -C native`` on first use if the shared library is
 missing and a toolchain is available; otherwise callers fall back to the
-numpy reference implementations in ``store.py`` / ``walks.py`` (same
+numpy reference implementations in ``store.py`` / ``walks.py`` /
+``bipartite.py`` (same
 behaviour, slower). ``is_available()`` reports which path is active.
 """
 from __future__ import annotations
@@ -53,6 +54,14 @@ def _load():
         i64p, i32p, f32p, i32p, i32p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64, i32p,
     ]
+    lib.pinsage_importance_neighbors.argtypes = [
+        i64p, i32p, i64p, i32p, i64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, i32p, ctypes.c_int64, ctypes.c_uint64, i32p, f32p,
+    ]
+    lib.metapath_i2u2i.argtypes = [
+        i64p, i32p, i64p, i32p, i64p, ctypes.c_int64, ctypes.c_uint64, i64p,
+    ]
     _lib = lib
     return _lib
 
@@ -92,5 +101,52 @@ def weighted_random_walks(indptr, indices, prob, alias, seeds, length, seed):
         _ptr(np.ascontiguousarray(alias, np.int32), ctypes.c_int32),
         _ptr(seeds, ctypes.c_int32),
         len(seeds), length, seed, _ptr(out, ctypes.c_int32),
+    )
+    return out
+
+
+def pinsage_importance_neighbors(
+    i2u_indptr, i2u_indices, u2i_indptr, u2i_indices, items,
+    num_neighbors, num_walks, walk_length, termination_prob, seed,
+    exclude=None,
+):
+    lib = _load()
+    assert lib is not None
+    items = np.ascontiguousarray(items, np.int64)
+    n = len(items)
+    out_nbr = np.empty((n, num_neighbors), np.int32)
+    out_w = np.empty((n, num_neighbors), np.float32)
+    if exclude is not None:
+        excl = np.ascontiguousarray(exclude, np.int32)
+        excl_ptr = _ptr(excl, ctypes.c_int32)
+        num_excl = excl.shape[1]
+    else:
+        excl_ptr = ctypes.cast(None, ctypes.POINTER(ctypes.c_int32))
+        num_excl = 0
+    lib.pinsage_importance_neighbors(
+        _ptr(np.ascontiguousarray(i2u_indptr, np.int64), ctypes.c_int64),
+        _ptr(np.ascontiguousarray(i2u_indices, np.int32), ctypes.c_int32),
+        _ptr(np.ascontiguousarray(u2i_indptr, np.int64), ctypes.c_int64),
+        _ptr(np.ascontiguousarray(u2i_indices, np.int32), ctypes.c_int32),
+        _ptr(items, ctypes.c_int64),
+        n, num_neighbors, num_walks, walk_length,
+        float(termination_prob), excl_ptr, num_excl, seed,
+        _ptr(out_nbr, ctypes.c_int32), _ptr(out_w, ctypes.c_float),
+    )
+    return out_nbr, out_w
+
+
+def metapath_i2u2i(i2u_indptr, i2u_indices, u2i_indptr, u2i_indices, items, seed):
+    lib = _load()
+    assert lib is not None
+    items = np.ascontiguousarray(items, np.int64)
+    out = np.empty(len(items), np.int64)
+    lib.metapath_i2u2i(
+        _ptr(np.ascontiguousarray(i2u_indptr, np.int64), ctypes.c_int64),
+        _ptr(np.ascontiguousarray(i2u_indices, np.int32), ctypes.c_int32),
+        _ptr(np.ascontiguousarray(u2i_indptr, np.int64), ctypes.c_int64),
+        _ptr(np.ascontiguousarray(u2i_indices, np.int32), ctypes.c_int32),
+        _ptr(items, ctypes.c_int64), len(items), seed,
+        _ptr(out, ctypes.c_int64),
     )
     return out

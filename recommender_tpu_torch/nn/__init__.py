@@ -3,6 +3,7 @@ from recommender_tpu_torch.nn.interactions import DotInteraction, fm_cross
 from recommender_tpu_torch.nn.losses import (
     bce_with_logits,
     binary_cross_entropy,
+    margin_loss,
     masked_auxiliary_loss,
 )
 from recommender_tpu_torch.nn.mlp import MLP, BatchNorm
@@ -35,6 +36,7 @@ __all__ = [
     "binary_cross_entropy",
     "dlrm_warmup_cosine",
     "fm_cross",
+    "margin_loss",
     "masked_auxiliary_loss",
     "masked_mean_pool",
 ]

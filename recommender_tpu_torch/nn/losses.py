@@ -1,5 +1,5 @@
-"""Losses: port of ``recommender_tpu/nn/losses.py`` (the BCE pair and DIEN's
-masked auxiliary loss).
+"""Losses: port of ``recommender_tpu/nn/losses.py`` (the BCE pair, PinSage's
+margin loss and DIEN's masked auxiliary loss).
 
 All return **per-example** losses, so callers control batch scaling.
 """
@@ -23,6 +23,13 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.clamp(logits, min=0.0) - logits * labels + torch.log1p(
         torch.exp(-torch.abs(logits))
     )
+
+
+def margin_loss(
+    pos_score: torch.Tensor, neg_score: torch.Tensor, delta: float = 1.0
+) -> torch.Tensor:
+    """Max-margin: max(0, neg + delta - pos), per example."""
+    return torch.clamp(neg_score + delta - pos_score, min=0.0)
 
 
 def masked_auxiliary_loss(

@@ -3,8 +3,9 @@
 synthetic set and on ``.npz`` splits, ``--resume`` bit for bit against the
 straight run, ``predict`` on a checkpoint whose tables have one size per
 column, BGE, GES and EGES on the synthetic graph and on an Amazon metadata
-file with ``--shared_lr_scale``, every refusal (BASE in ``predict`` and with
-a checkpoint, ``--export``, a test id outside its table), the flags and
+file with ``--shared_lr_scale``, EGES's ``--export`` / ``--export_int8``
+bundles served back, every refusal (BASE in ``predict`` and with a
+checkpoint, a test id outside its table), the flags and
 defaults of the JAX entry points, and that none of the new modules imports
 jax.
 """
@@ -273,11 +274,37 @@ def test_eges_cli_stream_is_the_jax_entry_points():
         assert all(np.array_equal(a[k], b[k]) for k in b)
 
 
-@pytest.mark.parametrize("flag", [["--export", "bundle.npz"], ["--export_int8"]],
-                         ids=lambda f: f[0].lstrip("-"))
-def test_eges_cli_refuses_export(flag):
-    with pytest.raises(SystemExit, match="retrieval slice"):
-        train_eges.main(COMMON + ["--synthetic", "--steps", "1"] + flag)
+@pytest.mark.parametrize("flag", [[], ["--export_int8"]],
+                         ids=lambda f: "export_int8" if f else "export")
+def test_eges_cli_refuses_export(capsys, tmp_path, flag):
+    """``--export`` (f32) and ``--export --export_int8`` write every node's
+    ``get_hidden`` as a bundle that ``cli.serve`` answers from."""
+    from recommender_tpu_torch.cli import serve
+    from recommender_tpu_torch.retrieval import export
+
+    bundle = str(tmp_path / "eges.npz")
+    state = train_eges.main(COMMON + ["--synthetic", "--steps", "3", "--model_type", "EGES",
+                                      "--export", bundle] + flag)
+    assert _lines(capsys)[-1] == {"exported": bundle}
+    b = export.load_serving_bundle(bundle)
+    assert b["metadata"] == {"model": "EGES", "embed_dim": 128}
+    g, side, _ = train_eges._synthetic_graph(seed=0)
+    with torch.no_grad():
+        hidden = state.model.get_hidden({
+            "target": torch.arange(g.num_nodes),
+            "target_cat": torch.from_numpy(side["cat"]),
+            "target_brand": torch.from_numpy(side["brand"]),
+        }).numpy()
+    if flag:
+        q, scale = export.quantize_reprs(hidden)
+        np.testing.assert_array_equal(b["item_reprs_int8"], q)
+        np.testing.assert_array_equal(b["item_scale"], scale)
+    else:
+        np.testing.assert_array_equal(b["item_reprs"], hidden)
+    recs = serve.main(["--bundle", bundle, "--items", "1,2,3", "--device", "cpu"])
+    assert recs.shape == (3, 10) and all(i not in r for i, r in zip((1, 2, 3), recs))
+    np.testing.assert_array_equal(recs, export.serve_topk(b, np.array([1, 2, 3])))
+    capsys.readouterr()
 
 
 def test_new_entry_points_need_a_card_by_default():

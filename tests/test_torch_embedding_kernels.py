@@ -309,7 +309,7 @@ def test_chunk_geometry_fills_one_block(d, vec):
     assert chunk == slots * ek._ROWS_PER_SLOT
 
 
-SWEEP_DIMS = [1, 3, 5, 8, 16, 18, 33, 64, 128, 130]
+SWEEP_DIMS = [1, 3, 5, 8, 16, 18, 32, 33, 64, 128, 130]
 SWEEP_TYPES = ["f32", "bf16_updates", "f32_kernel_bf16"]
 
 
@@ -338,6 +338,34 @@ def test_cuda_kernel_width_sweep(d, dtypes, with_order, cuda_device):
         upd_t = upd_t.to(torch.bfloat16)
     kd = torch.bfloat16 if dtypes == "f32_kernel_bf16" else torch.float32
     _check_on_card(raw[order], upd_t, vocab, order if with_order else None, kd, cuda_device)
+
+
+# the retrieval models' tables: (vocab, D, ids a b512 / b1024 step looks up)
+RETRIEVAL_SHAPES = {
+    "pinsage_year": (81, 8, 6144 + 18432),  # runs of ~300 equal ids
+    "pinsage_id": (3706, 8, 18432),
+    "twotower_user": (6000, 32, 1024),
+    "twotower_item": (3700, 32, 1024),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_order", [True, False], ids=["order", "sorted"])
+@pytest.mark.parametrize("dtypes", ["f32", "bf16_updates"])
+@pytest.mark.parametrize("shape", list(RETRIEVAL_SHAPES))
+def test_cuda_kernel_retrieval_shapes(shape, dtypes, with_order, cuda_device):
+    vocab, d, n = RETRIEVAL_SHAPES[shape]
+    rng = np.random.default_rng(vocab)
+    raw = rng.integers(0, vocab, n).astype(np.int32)
+    raw[::97] = vocab + 5  # ids >= V, dropped
+    order = np.argsort(raw, kind="stable").astype(np.int32)
+    upd_t = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    if not with_order:
+        upd_t = upd_t[torch.from_numpy(order).long()].contiguous()
+    if dtypes == "bf16_updates":
+        upd_t = upd_t.to(torch.bfloat16)
+    _check_on_card(raw[order], upd_t, vocab, order if with_order else None, torch.float32,
+                   cuda_device)
 
 
 @pytest.mark.cuda
