@@ -39,7 +39,14 @@ random weights drawn from seed 0:
   IVF bundles served by ``cli.serve``; ``cli.train_twotower`` at the
   RESULTS protocol's width; ``serve_topk`` on a 2M x 128 corpus (f32 and
   int8, query batches of 1 to 1,024) and IVF at ``exp_ivf.py --quick``
-  width.
+  width;
+* distribution at ``bench.py``'s DLRM width: ``cli.train_ctr`` launched as
+  a one-rank NCCL job, and as two ranks on this card with the table
+  row-sharded (psum and all-to-all exchanges), data-parallel training, a
+  skewed all-to-all, the two-tower's cross-rank negatives, and a
+  checkpoint written at mesh (1, 2) and resumed at (1, 1). One card holds
+  the two ranks, and NCCL refuses two ranks on one device, so they run over
+  gloo through the port's one-card transport (their times are not NCCL's).
 
 Run from the repository root (it builds the CUDA kernels from the sources
 in this checkout at first use, into build/recommender_tpu_torch/):
@@ -173,6 +180,8 @@ Phases, one JSON line each (k2 one per shape):
                   community similarity and hit-rate guards, int8 against
                   f32 top-10 overlap and top-1, IVF at full probes equal
                   to int8 brute force, 150 + ``--resume`` 150 bit for bit.
+                  (The k1 phase also times K1 at the row-sharded DLRM
+                  table's two backward shapes on shard 0 [500,000, 16].)
 25. twotower_cli — ``cli.train_twotower.main --data_dir`` at the RESULTS
                   protocol's width (written as MovieLens files), exported
                   int8 and served; ``tests/test_two_tower.py``'s set-up
@@ -187,6 +196,47 @@ Phases, one JSON line each (k2 one per shape):
 27. retrieval_card_cpu — a small PinSage and a small two-tower, 3 steps each
                   from one init on the card and on the CPU, then served:
                   the losses must agree.
+28. dist_reference — single-process runs (no process group): ``cli.train_ctr``
+                  at ``DIST_ARGS`` for 20 steps (1M x 16 bf16 + SR-Adam,
+                  b8192), 20 DLRM Trainer steps at b8192 and 20 two-tower
+                  steps at the RESULTS width, b1024, each as shipped and
+                  with f32 tables and MLPs; DLRM's first batch also in
+                  two halves (``_half_batch_step``).
+29. dist_nccl1  — ``cli.train_ctr`` launched with ``--coordinator_address
+                  127.0.0.1:P --num_processes 1 --process_id 0`` (NCCL):
+                  the losses equal the unlaunched run's bit for bit.
+                  Each dist phase's ms a step is the median of its last
+                  half of steps; its first half times each collective
+                  between syncs (the transport's ms and its share of
+                  those serialized steps).
+30. dist_sharded — two ranks on this card (gloo), ``--mesh_model 2``: with
+                  ``--lookup_mode psum`` the losses and every trained param
+                  equal the single-process run's bit for bit; with ``a2a``
+                  (capacity 2.0) the losses within ``DIST_A2A_LOSS_TOL``;
+                  each rank's shard is [500,000, 16], K1 launches once a
+                  step per rank, the dense params are equal across ranks;
+                  ms a step per rank and the transport's share of it.
+31. dist_skew   — the a2a lookup at capacity 1.0 on a batch of Zipf ids:
+                  ``a2a_overflow`` > 0, equal to ``a2a_overflow_fraction``
+                  x ids x 2 (each rank counts its own copy), the dropped
+                  rows 0, the others the table's.
+32. dist_dp     — mesh (2, 1), 4,096 rows a rank of each b8192 batch, the
+                  table's gradient gathered over the ranks, the rest
+                  averaged by the Trainer; as shipped and with an f32
+                  table and MLPs (dist_dp_f32): the first step's loss and
+                  gradients against one process's two half batches
+                  averaged (the dense ones expected bit for bit), the first
+                  loss within ``DIST_DP_LOSS_TOL`` of the b8192 run's, the
+                  20 within ``DIST_TRAJECTORY_TOL``; an all-reduce of the
+                  [1M, 16] f32 table gradient timed beside it. Then
+                  dist_twotower: two ranks of 512 against one of 1,024,
+                  the in-batch negatives gathered across ranks.
+                  dist_dryrun: ``python -m recommender_tpu_torch.dryrun``'s
+                  ``main`` on the card in the NCCL rank (1 x 1) and in the
+                  two gloo ranks (1, 2): equal finite losses, K1 5 times.
+33. dist_checkpoint — the (1, 2) psum run stopped at step 10 with a
+                  checkpoint, resumed here at (1, 1) to step 20: every param
+                  and moment equal to the uninterrupted run's.
 
 Then it prints the card line from nvidia-smi, a JSON line of the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -213,6 +263,15 @@ per-table bf16 + SR, stacked f32) and the EGES step at bench_eges width
 
 times K2's forward as built against the same source with its register
 limits at 1 (``fwd_occupancy``), each at the k2 shape its limit governs.
+
+    python3 chip_smoke.py --dist
+
+runs the distribution phases (28-33) alone, after the build, and
+
+    python3 chip_smoke.py --probe-gloo-cuda
+
+asks two ranks on this card which of the port's four collectives gloo
+takes on CUDA tensors (``probe_gloo_cuda``).
 
 Any failed check raises, so the script exits non-zero without the last
 line. It exits non-zero at once where no CUDA device is available.
@@ -261,6 +320,7 @@ from recommender_tpu_torch.data.movielens import ground_truth_matrix
 from recommender_tpu_torch.data.pipeline import prefetch_to_device, with_dedup_plans
 from recommender_tpu_torch.graph import WeightedGraph, native, skipgram_batches
 from recommender_tpu_torch.graph.bipartite import BipartiteGraph
+from recommender_tpu_torch.nn.mlp import MLP
 from recommender_tpu_torch.models import (
     BST,
     DIEN,
@@ -620,7 +680,7 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
     plain_ms = cuda_ms(lambda: ek.sorted_scatter_add_ref(sorted_ids, u, vocab, order=o, kernel_dtype=kd))
     # the yardstick: index_add_ into a fresh zero table, on the updates already
     # permuted, rounded and cut to the ids below vocab
-    keep = sorted_ids < vocab
+    keep = (sorted_ids >= 0) & (sorted_ids < vocab)  # K1 drops the rest
     lib_ids = sorted_ids[keep].long()
     lib_upd = (u if o is None else u.index_select(0, o.long())).to(kd).float()[keep]
     library_ms = cuda_ms(lambda: torch.zeros((vocab, u.shape[1]), device=u.device).index_add_(
@@ -631,7 +691,7 @@ def _k1_case(results, name, sorted_ids, u, o, kd, u_sorted, vocab, **info):
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     _, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
     emit("k1", case=name, n=int(sorted_ids.numel()), vocab=vocab, dim=int(u.shape[1]),
-         unique_ids=int(torch.unique(sorted_ids[sorted_ids < vocab]).numel()),
+         unique_ids=int(torch.unique(sorted_ids[keep]).numel()), dropped_ids=int((~keep).sum()),
          longest_run=int(counts.max()), **info,
          max_abs_err=max_abs, max_rel_err=max_rel,
          tolerance=f"|err| <= {K1_REL_TOL} * row abs-sum + {K1_ABS_FLOOR}",
@@ -758,6 +818,23 @@ def phase_k1(device, seq_batch: dict, mt_batch: dict, eges_batch: dict, ps_batch
         ("twotower_item_f32_order", tt_batch["item_id"], 32, TT_ITEMS),
     ):
         _k1_ids_case(results, device, name, ids, dim, vocab)
+    # the row-sharded table's backwards at DLRM b8192, model 2, on shard 0
+    # ([500,000, 16], the hot rows of SyntheticCTR's Zipf ids) with a bf16
+    # cotangent: the psum exchange hands K1 all 212,992 ids shifted by the
+    # shard's first row (other shards' ids fall outside and are dropped);
+    # the a2a exchange at capacity 2.0 the ids both ranks routed to it
+    from recommender_tpu_torch.embedding import sharded
+
+    cat = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(BATCH, seed=1)["cat_features"]
+    rows = VOCAB // DIST_RANKS
+    _k1_ids_case(results, device, "dist_psum_shard_bf16_order", cat, DIM, rows, torch.bfloat16,
+                 shard=0, model=DIST_RANKS)
+    flat = torch.from_numpy(cat.reshape(-1)).to(device)
+    cap = sharded.a2a_capacity(flat.numel(), DIST_RANKS, DIST_A2A_CAPACITY)
+    send, _ = sharded._route(flat, DIST_RANKS, rows, cap)
+    served = torch.cat([send[:cap]] * DIST_RANKS)  # shard 0's bucket from each rank
+    _k1_ids_case(results, device, "dist_a2a_shard_bf16_order", served.cpu().numpy(), DIM, rows,
+                 torch.bfloat16, shard=0, model=DIST_RANKS, capacity_factor=DIST_A2A_CAPACITY)
     return results
 
 
@@ -2776,6 +2853,680 @@ def fwd_occupancy(device, rounds: int = 6) -> dict:
     return out
 
 
+# --------------------------------------------------------- distribution
+# Multi-process phases. The card is one H100, and NCCL refuses two
+# ranks on one device, so the two-rank phases run both ranks on cuda:0 over
+# gloo, the port's one-card transport (core/distributed.py: gloo copies the
+# CUDA tensors through host memory); the times they give are not NCCL's.
+# NCCL runs at world size 1 (dist_nccl1). Each rank is a process of its own
+# (multiprocessing, spawn), rendezvous over TCP on 127.0.0.1.
+DIST_STEPS = 20
+DIST_RANKS = 2
+DIST_CKPT_STEPS = 10  # at mesh (1, 2), then resumed at (1, 1) for the rest
+DIST_ARGS = (*CTR_ARGS, "--model_type", "DLRM", "--dedup_lookup", "off")
+DIST_A2A_CAPACITY = 2.0  # lossless at model 2 (each owner's bucket holds every id)
+DIST_SKEW_CAPACITY = 1.0  # the fair share: SyntheticCTR's Zipf ids overflow shard 0
+# a2a against the single-process run: the same forward, and K1 sums each
+# row's served cotangents (each sent by both ranks at half weight) in other
+# positions, so f32 roundoff, which bf16 + SR can carry into later steps
+DIST_A2A_LOSS_TOL = 1e-6
+# (2, 1) against one process, from one init on the same global batches.
+# The check of the average: the first step's loss and gradients against the
+# same process's two half batches (each rank's rows, the same shapes, so
+# the same kernels), their losses and gradients averaged in f32 as the
+# Trainer averages two ranks': the loss within DIST_HALVES_LOSS_TOL, the
+# dense gradients within DIST_HALVES_RTOL of each one's largest entry
+# (equal bit for bit is expected), the table's, which K1 sums over both
+# halves at once, within DIST_HALVES_RTOL (f32, as shipped's bf16 one
+# within DIST_BF16_TABLE_RTOL: each half's rounded to bf16 is up to twice
+# the average's largest entry, half a bf16 ulp each, and the average
+# rounded once). DLRM as shipped (bf16 + SR table, bf16 MLPs) and with an
+# f32 table and MLPs. Against the b8192 run (other GEMM shapes, so ReLU
+# inputs near 0 take the other side and Adam's first step moves every
+# parameter by +-lr on its gradient's sign) the first loss within
+# DIST_DP_LOSS_TOL and the 20 within DIST_TRAJECTORY_TOL. The two-tower
+# against one rank of 1,024: the first loss within DIST_TT_LOSS_TOL, its
+# gradients within DIST_BF16_NOISE_FACTOR times the one-rank bf16 run's
+# distance from its f32 run (plus DIST_HALVES_RTOL), as a share of the
+# largest entry (two runs that round apart differ by about 1.4 times one
+# run's rounding; a missing or partial average, by about the gradient
+# itself), and the 20 losses within DIST_TRAJECTORY_TOL
+DIST_DP_LOSS_TOL = 1e-5
+DIST_HALVES_LOSS_TOL = 1e-6
+DIST_HALVES_RTOL = 1e-5
+DIST_BF16_TABLE_RTOL = 3 * 2.0 ** -8
+DIST_BF16_NOISE_FACTOR = 3.0
+DIST_TRAJECTORY_TOL = 2e-3
+DIST_TT_STEPS = 20
+DIST_TT_LOSS_TOL = 1e-6
+DIST_WORKER_TIMEOUT = 600  # seconds, each spawned phase
+TRANSPORT_CALLS = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
+                   "reduce_scatter_tensor")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def step_records(instrumented: int):
+    """Per ``Trainer.train_step`` while the block runs: the exact loss (a
+    sync) and the host clock after it. The first ``instrumented`` steps
+    also time the one-card transport's host time inside them, each
+    collective from a ``synchronize`` before it (so that it holds no queued
+    compute) to one after it; those syncs serialize the step, so the step
+    time is read from the later, plain steps (``_step_summary``)."""
+    from recommender_tpu_torch.core import distributed as dd
+
+    rec = {"loss": [], "t": [], "transport_ms": [], "instrumented": instrumented}
+    spent = [0.0]
+    on = [False]
+    real_calls = {n: getattr(dd, n) for n in TRANSPORT_CALLS}
+    real_step = Trainer.train_step
+
+    def timed(fn):
+        def call(*args, **kw):
+            if not on[0]:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    def step(self, state, batch):
+        before = spent[0]
+        on[0] = len(rec["loss"]) < instrumented
+        state, metrics = real_step(self, state, batch)
+        rec["loss"].append(float(metrics["loss"]))
+        on[0] = False
+        rec["t"].append(time.perf_counter())
+        rec["transport_ms"].append((spent[0] - before) * 1e3)
+        if "a2a_overflow" in metrics:
+            rec.setdefault("a2a_overflow", []).append(int(metrics["a2a_overflow"]))
+        return state, metrics
+
+    for n, fn in real_calls.items():
+        setattr(dd, n, timed(fn))
+    Trainer.train_step = step
+    try:
+        yield rec
+    finally:
+        Trainer.train_step = real_step
+        for n, fn in real_calls.items():
+            setattr(dd, n, fn)
+
+
+def _tensor_sha(t: torch.Tensor) -> str:
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    bits = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return hashlib.sha256(bits.numpy().tobytes()).hexdigest()
+
+
+def _param_shas(model, rows: tuple | None = None) -> dict:
+    """sha256 of each parameter's bits; ``rows`` (lo, hi) cuts the table."""
+    out = {}
+    for name, p in model.named_parameters():
+        out[name] = _tensor_sha(p[rows[0]:rows[1]] if rows and name == "embedding.embedding" else p)
+    return out
+
+
+def _step_summary(rec: dict) -> dict:
+    """Step times (synced: each step ends in its loss's fetch) of the plain
+    steps after the instrumented ones, and the transport's ms and share of
+    the instrumented steps but the first."""
+    k = rec["instrumented"]
+    dt = np.diff(rec["t"]) * 1e3  # dt[i] is step i + 1
+    plain, synced = dt[k - 1:], dt[:k - 1]
+    transport = np.asarray(rec["transport_ms"][1:k])
+    out = dict(ms_per_step_median=float(np.median(plain)), ms_per_step_min=float(plain.min()),
+               ms_per_step_max=float(plain.max()), plain_steps=len(plain),
+               instrumented_ms_per_step_median=float(np.median(synced)),
+               transport_ms_per_step_median=float(np.median(transport)),
+               transport_share_of_instrumented_step=float(np.median(transport)
+                                                          / np.median(synced)))
+    if "a2a_overflow" in rec:
+        out["a2a_overflow"] = rec["a2a_overflow"]
+    return out
+
+
+def _dist_ctr(rank, world, address, backend, extra=(), steps=DIST_STEPS) -> dict:
+    """``cli.train_ctr.main`` as one rank of a ``world``-rank job."""
+    argv = [*DIST_ARGS, "--steps", str(steps), *extra, "--coordinator_address", address,
+            "--num_processes", str(world), "--process_id", str(rank), "--dist_backend", backend]
+    reset_counts()
+    with step_records(steps // 2) as rec:
+        state, lines = _cli_run(argv, train_ctr.main)
+    torch.cuda.synchronize()
+    table = state.model.embedding
+    return dict(argv=argv, losses=rec["loss"], k1_launches=ek.sorted_scatter_add.launches,
+                shard_shape=list(table.embedding.shape), row_offset=table.row_offset,
+                lookup_mode=table.lookup_mode, sharded=table.sharded,
+                backend=torch.distributed.get_backend(), shas=_param_shas(state.model),
+                device=str(table.embedding.device), final=lines[-1] if lines else None,
+                plan=[m for m in lines if "shard_plan" in m], **_step_summary(rec))
+
+
+def _dist_skew(rank, world, address, backend) -> dict:
+    """The a2a exchange at the fair-share capacity on one b8192 batch of
+    Zipf ids, against the whole table on this card."""
+    from recommender_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from recommender_tpu_torch.embedding import sharded
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(MeshSpec(1, world))
+    g = torch.Generator(device=device).manual_seed(SEED)
+    whole = torch.randn((VOCAB, DIM), generator=g, device=device).to(torch.bfloat16)
+    shard = sharded.shard_table(whole, mesh)
+    ids = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(BATCH, seed=1)["cat_features"]
+    fraction = sharded.a2a_overflow_fraction(ids, world, VOCAB, DIST_SKEW_CAPACITY)
+    ids_t = torch.from_numpy(ids).to(device)
+    out, dropped = sharded.all_to_all_lookup(shard, ids_t, mesh, DIST_SKEW_CAPACITY,
+                                             return_overflow=True)
+    want = whole[ids_t.long()]
+    zero = (out == 0).all(dim=-1)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sharded.all_to_all_lookup(shard, ids_t, mesh, DIST_SKEW_CAPACITY, return_overflow=True)
+    torch.cuda.synchronize()
+    return dict(ids=int(ids.size), fraction=fraction, dropped=int(dropped),
+                dropped_rows=int(zero.sum()), dropped_rows_max_abs=float(out[zero].abs().max())
+                if bool(zero.any()) else 0.0,
+                served_equal=bool(torch.equal(out[~zero], want[~zero])),
+                lookup_ms=(time.perf_counter() - t0) / 5 * 1e3)
+
+
+def _dp_batches(steps: int):
+    train = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(steps * BATCH, seed=1)
+    it = batch_iterator(train, BATCH, seed=SEED, epochs=None)
+    return [next(it) for _ in range(steps)]
+
+
+def _f32_mlps(model) -> None:
+    """Every MLP of ``model`` computing in f32 instead of bf16."""
+    for m in model.modules():
+        if isinstance(m, MLP):
+            m.compute_dtype = torch.float32
+
+
+def _dp_losses(device, mesh=None, f32=False) -> dict:
+    """``DIST_STEPS`` Trainer steps of the CTR entry point's DLRM on global
+    b8192 batches, each rank taking its contiguous share of every batch;
+    ``f32``: an f32 table and f32 MLPs instead of bf16 + SR and bf16."""
+    from recommender_tpu_torch.cli.train_ctr import build_model
+
+    model = build_model("DLRM", VOCAB, DIM, torch.float32 if f32 else torch.bfloat16, device,
+                        mesh=mesh)
+    init_model(model, seed=SEED)
+    if f32:
+        _f32_mlps(model)
+    loss_fn, eval_fn = make_ctr_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, seed=SEED), eval_fn,
+                      device=device, mesh=mesh)
+    state = trainer.init_state(lambda: model)
+    n = trainer.mesh.data
+    share = BATCH // n
+    lo = trainer.mesh.data_index * share
+    batches = _dp_batches(DIST_STEPS)
+    if n == 1:
+        halves = _half_batch_step(model, loss_fn, trainer, batches[0])
+    reset_counts()
+    with step_records(DIST_STEPS // 2) as rec:
+        for i, batch in enumerate(batches):
+            local = {k: v[lo:lo + share] for k, v in batch.items()}
+            state, _ = trainer.train_step(state, trainer.put_batch(local))
+            if i == 0:
+                grads = _grads_of(model)
+    out = dict(losses=rec["loss"], rows_per_rank=share, k1_launches=ek.sorted_scatter_add.launches,
+               grads=grads, **_step_summary(rec))
+    if n == 1:
+        out["halves"] = halves
+    else:  # the table's gradient takes no all-reduce; what one would cost
+        out["table_grad_all_reduce_ms"] = _all_reduce_ms((VOCAB, DIM), trainer.mesh.data_group)
+    return out
+
+
+def _half_batch_step(model, loss_fn, trainer, batch) -> dict:
+    """The first step's loss and gradients as ``DIST_RANKS`` data ranks take
+    them, in this process: each rank's contiguous rows, their mean loss and
+    its gradients, averaged in f32 in rank order; no update."""
+    share = BATCH // DIST_RANKS
+    losses, grads = [], []
+    for r in range(DIST_RANKS):
+        part = trainer.put_batch({k: v[r * share:(r + 1) * share] for k, v in batch.items()})
+        model.zero_grad(set_to_none=True)
+        per_ex, _ = loss_fn(part, True)
+        loss = torch.mean(per_ex)
+        loss.backward()
+        losses.append(loss.detach().float())
+        grads.append({n: p.grad.detach().float().clone() for n, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    total = grads[0]
+    for g in grads[1:]:
+        total = {n: total[n] + g[n] for n in total}
+    loss = losses[0]
+    for x in losses[1:]:
+        loss = loss + x
+    return dict(loss=float(loss / DIST_RANKS),
+                grads={n: (t / DIST_RANKS).cpu() for n, t in total.items()})
+
+
+def _all_reduce_ms(shape, group) -> float:
+    """Median host ms of an f32 all-reduce of ``shape`` over ``group``, from
+    a sync to a sync (4 of 5 calls, after one to warm up)."""
+    from recommender_tpu_torch.core import distributed as dd
+
+    buf = torch.zeros(shape, dtype=torch.float32, device=torch.cuda.current_device())
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dd.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def _grads_of(model) -> dict:
+    """Each parameter's gradient of the step just taken, on the host."""
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def _grad_rel_err(got: dict, want: dict) -> dict:
+    """Per parameter: max |got - want| over max |want|."""
+    return {n: float((got[n] - want[n]).abs().max() / want[n].abs().max().clamp(min=1e-30))
+            for n in want}
+
+
+def _dist_dp(rank, world, address, backend, f32=False) -> dict:
+    from recommender_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    return _dp_losses(torch.device("cuda", torch.cuda.current_device()),
+                      make_mesh(MeshSpec(world, 1)), f32)
+
+
+def _tt_losses(device, mesh=None, f32=False) -> dict:
+    """``DIST_TT_STEPS`` two-tower Trainer steps at the RESULTS width on
+    global b1024 batches, each rank taking its contiguous share; ``f32``:
+    the towers compute in f32 instead of bf16."""
+    us, its = twotower_interactions()
+    g = BipartiteGraph(us, its, TT_USERS, TT_ITEMS)
+    model = init_model(TwoTower(user_vocab=TT_USERS, item_vocab=TT_ITEMS, embed_dim=32,
+                                repr_dim=32, tower_units=(64,), device=device, mesh=mesh),
+                       seed=SEED)
+    if f32:
+        _f32_mlps(model)
+    loss_fn, eval_fn = make_two_tower_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=3e-3, seed=SEED), eval_fn,
+                      device=device, mesh=mesh)
+    state = trainer.init_state(lambda: model)
+    share = 1024 // trainer.mesh.data
+    lo = trainer.mesh.data_index * share
+    it = interaction_batches(g, 1024, seed=SEED)
+    reset_counts()
+    with step_records(DIST_TT_STEPS // 2) as rec:
+        for i in range(DIST_TT_STEPS):
+            batch = {k: v[lo:lo + share] for k, v in next(it).items()}
+            state, _ = trainer.train_step(state, trainer.put_batch(batch))
+            if i == 0:
+                grads = _grads_of(model)
+    return dict(losses=rec["loss"], rows_per_rank=share, grads=grads,
+                k1_launches=ek.sorted_scatter_add.launches, **_step_summary(rec))
+
+
+def _dist_twotower(rank, world, address, backend) -> dict:
+    from recommender_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    return _tt_losses(torch.device("cuda", torch.cuda.current_device()),
+                      make_mesh(MeshSpec(world, 1)))
+
+
+def _dist_dryrun(rank, world, address, backend) -> dict:
+    """The dry run's entry point (``python -m recommender_tpu_torch.dryrun
+    --device cuda``) in this rank's group: one DLRM and one PinSage step on
+    this card, the tables row-sharded over every rank."""
+    from recommender_tpu_torch import dryrun
+
+    reset_counts()
+    losses = dryrun.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    return dict(losses=losses, k1_launches=ek.sorted_scatter_add.launches,
+                backend=torch.distributed.get_backend())
+
+
+DIST_JOBS = {"ctr": _dist_ctr, "skew": _dist_skew, "dp": _dist_dp, "twotower": _dist_twotower,
+             "dryrun": _dist_dryrun}
+
+
+def _dist_rank(rank: int, world: int, address: str, backend: str, jobs: list, out: str):
+    """One rank, in a process of its own: join the group, run ``jobs``
+    (``(key, job name, kwargs)``) in order, save the results for the parent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from recommender_tpu_torch.core.distributed import initialize_from_flags
+
+    initialize_from_flags(address, world, rank, device="cuda", backend=backend)
+    results = {}
+    for key, name, kw in jobs:
+        results[key] = DIST_JOBS[name](rank, world, address, backend, **kw)
+    torch.save(results, f"{out}/rank_{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, jobs: list) -> list[dict]:
+    """``world`` spawned ranks on this card running ``jobs``; each rank's
+    results. Fails if a rank fails or outlives ``DIST_WORKER_TIMEOUT``;
+    every process is stopped on the way out."""
+    import multiprocessing
+
+    out = _build.BUILD_DIR / "dist_ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    address = f"127.0.0.1:{_free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, address, backend, jobs, str(out)))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_WORKER_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(codes == [0] * world, f"ranks exited with {codes} ({backend}, jobs {[j[0] for j in jobs]})")
+    results = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    return results
+
+
+def _max_diff(a, b) -> float:
+    check(len(a) == len(b), f"{len(a)} against {len(b)} losses")
+    return float(max(abs(x - y) for x, y in zip(a, b)))
+
+
+def phase_dist(device) -> dict:
+    """The distribution phases (module docstring, 28-33): single-process
+    references in this process, then one NCCL rank, then two gloo ranks on
+    this card; returns K1's launches by path."""
+    root = _build.BUILD_DIR / "dist"
+    shutil.rmtree(root, ignore_errors=True)
+    t_all = time.perf_counter()
+    # the unlaunched single-process run: the reference of dist_nccl1,
+    # dist_sharded and dist_checkpoint
+    reset_counts()
+    with step_records(DIST_STEPS // 2) as rec:
+        ref_state, ref_lines = _cli_run([*DIST_ARGS, "--steps", str(DIST_STEPS)], train_ctr.main)
+    ref = dict(losses=rec["loss"], k1_launches=ek.sorted_scatter_add.launches,
+               **_step_summary(rec))
+    dp_ref, tt_ref = _dp_losses(device), _tt_losses(device)
+    dp32_ref, tt32_ref = _dp_losses(device, f32=True), _tt_losses(device, f32=True)
+    emit("dist_reference", steps=DIST_STEPS, ctr=ref,
+         **{k: {f: v for f, v in r.items() if f not in ("grads", "halves")} for k, r in
+            (("dp", dp_ref), ("twotower", tt_ref), ("dp_f32", dp32_ref),
+             ("twotower_f32", tt32_ref))})
+
+    # dist_nccl1: the entry point launched as a one-rank NCCL job
+    t0 = time.perf_counter()
+    [nccl] = run_ranks(1, "nccl", [("ctr", "ctr", {}), ("dryrun", "dryrun", {})])
+    dryruns = {"nccl1": [nccl["dryrun"]]}
+    nccl = nccl["ctr"]
+    emit("dist_nccl1", backend=nccl["backend"], losses=nccl["losses"],
+         k1_launches=nccl["k1_launches"], ms_per_step_median=nccl["ms_per_step_median"],
+         reference_ms_per_step_median=ref["ms_per_step_median"],
+         equal_bit_for_bit=nccl["losses"] == ref["losses"], seconds=time.perf_counter() - t0)
+    check(nccl["backend"] == "nccl", f"dist_nccl1 ran over {nccl['backend']}")
+    check(nccl["losses"] == ref["losses"], "dist_nccl1: losses differ from the unlaunched run")
+    check(nccl["k1_launches"] == DIST_STEPS, f"dist_nccl1 launched K1 {nccl['k1_launches']} times")
+
+    # two gloo ranks on this card: psum, a2a, the skewed a2a, (2, 1), the
+    # two-tower, and a (1, 2) run that writes a checkpoint
+    ckpt = root / "checkpoint"
+    t0 = time.perf_counter()
+    ranks = run_ranks(DIST_RANKS, "gloo", [
+        ("psum", "ctr", {"extra": ("--mesh_model", "2", "--lookup_mode", "psum")}),
+        ("a2a", "ctr", {"extra": ("--mesh_model", "2", "--lookup_mode", "a2a",
+                                  "--a2a_capacity_factor", str(DIST_A2A_CAPACITY))}),
+        ("skew", "skew", {}),
+        ("dp", "dp", {}),
+        ("dp_f32", "dp", {"f32": True}),
+        ("twotower", "twotower", {}),
+        ("dryrun", "dryrun", {}),
+        ("checkpoint", "ctr", {"extra": ("--mesh_model", "2", "--lookup_mode", "psum",
+                                         "--checkpoint_dir", str(ckpt)),
+                               "steps": DIST_CKPT_STEPS}),
+    ])
+    gloo_seconds = time.perf_counter() - t0
+    rows = VOCAB // DIST_RANKS
+    ref_shas = _param_shas(ref_state.model)
+    sharded_out = {}
+    for mode, tol in (("psum", 0.0), ("a2a", DIST_A2A_LOSS_TOL)):
+        runs = [r[mode] for r in ranks]
+        diff = _max_diff(runs[0]["losses"], ref["losses"])
+        same_ranks = all(r["losses"] == runs[0]["losses"] for r in runs)
+        dense = [n for n in runs[0]["shas"] if n != "embedding.embedding"]
+        dense_equal_across_ranks = all(r["shas"][n] == runs[0]["shas"][n] for r in runs for n in dense)
+        shards_equal_ref = all(
+            r["shas"]["embedding.embedding"] == _param_shas(
+                ref_state.model, (r["row_offset"], r["row_offset"] + rows))["embedding.embedding"]
+            for r in runs)
+        dense_equal_ref = all(runs[0]["shas"][n] == ref_shas[n] for n in dense)
+        sharded_out[mode] = dict(
+            losses=runs[0]["losses"], max_abs_loss_diff=diff, tolerance=tol,
+            bit_for_bit=runs[0]["losses"] == ref["losses"], shards_equal_reference=shards_equal_ref,
+            dense_equal_reference=dense_equal_ref, dense_equal_across_ranks=dense_equal_across_ranks,
+            shard_shapes=[r["shard_shape"] for r in runs], k1_launches=[r["k1_launches"] for r in runs],
+            lookup_mode=runs[0]["lookup_mode"], final=runs[0]["final"],
+            ms_per_step_median=[r["ms_per_step_median"] for r in runs],
+            transport_ms_per_step_median=[r["transport_ms_per_step_median"] for r in runs],
+            transport_share_of_instrumented_step=[
+                r["transport_share_of_instrumented_step"] for r in runs],
+            instrumented_ms_per_step_median=[r["instrumented_ms_per_step_median"] for r in runs],
+            a2a_overflow=runs[0].get("a2a_overflow"))
+        check(all(r["backend"] == "gloo" and r["device"].startswith("cuda") for r in runs),
+              f"dist_sharded {mode}: not gloo ranks on the card")
+        check(all(r["sharded"] for r in runs), f"dist_sharded {mode}: the table is not sharded")
+        check(same_ranks, f"dist_sharded {mode}: the ranks' losses differ")
+        check(dense_equal_across_ranks, f"dist_sharded {mode}: dense params differ across ranks")
+        check(diff <= tol, f"dist_sharded {mode}: losses differ by {diff} > {tol}")
+        check(all(r["shard_shape"] == [rows, DIM] for r in runs),
+              f"dist_sharded {mode}: shards {[r['shard_shape'] for r in runs]}")
+        check(all(r["k1_launches"] == DIST_STEPS for r in runs),
+              f"dist_sharded {mode}: K1 launches {[r['k1_launches'] for r in runs]}")
+    check(sharded_out["psum"]["shards_equal_reference"] and sharded_out["psum"]["dense_equal_reference"],
+          "dist_sharded psum: the trained params differ from the single-process run's")
+    emit("dist_sharded", ranks=DIST_RANKS, backend="gloo (one-card transport)",
+         a2a_capacity_factor=DIST_A2A_CAPACITY, reference_ms_per_step_median=ref["ms_per_step_median"],
+         seconds_all_gloo_jobs=gloo_seconds, **sharded_out)
+
+    skew = [r["skew"] for r in ranks]
+    want_per_rank = round(skew[0]["fraction"] * skew[0]["ids"])
+    emit("dist_skew", capacity_factor=DIST_SKEW_CAPACITY, **skew[0],
+         dropped_rows_by_rank=[s["dropped_rows"] for s in skew],
+         expected_dropped=want_per_rank * DIST_RANKS,
+         note="a2a_overflow sums every rank's own drops over the model group, each rank "
+              "routing its copy of the replicated ids, as JAX counts them")
+    check(skew[0]["dropped"] > 0, "dist_skew: no id overflowed at capacity 1.0")
+    check(all(s["dropped"] == want_per_rank * DIST_RANKS for s in skew),
+          f"dist_skew: a2a_overflow {skew[0]['dropped']} != {want_per_rank} x {DIST_RANKS}")
+    check(all(s["dropped_rows"] == want_per_rank and s["dropped_rows_max_abs"] == 0.0
+              and s["served_equal"] for s in skew), "dist_skew: dropped or served rows wrong")
+
+    for key, ref_run in (("dp", dp_ref), ("dp_f32", dp32_ref)):
+        runs = [r[key] for r in ranks]
+        halves = ref_run["halves"]
+        table_tol = DIST_HALVES_RTOL if key.endswith("_f32") else DIST_BF16_TABLE_RTOL
+        first = abs(runs[0]["losses"][0] - ref_run["losses"][0])
+        diff = _max_diff(runs[0]["losses"], ref_run["losses"])
+        half_loss = abs(runs[0]["losses"][0] - halves["loss"])
+        half_err = _grad_rel_err(runs[0]["grads"], halves["grads"])
+        tol = {n: table_tol if n == "embedding.embedding" else DIST_HALVES_RTOL for n in half_err}
+        dense_bitwise = all(torch.equal(runs[0]["grads"][n], halves["grads"][n])
+                            for n in half_err if n != "embedding.embedding")
+        name = f"dist_{key}"
+        emit(name, mesh=[DIST_RANKS, 1], rows_per_rank=runs[0]["rows_per_rank"],
+             dtypes="f32 table and MLPs" if key.endswith("_f32")
+             else "as shipped: bf16 + SR table, bf16 MLPs",
+             losses=runs[0]["losses"], reference_losses=ref_run["losses"],
+             first_step_loss_against_halves=half_loss, halves_loss_tolerance=DIST_HALVES_LOSS_TOL,
+             first_step_grad_rel_err_against_halves=half_err, halves_grad_rtol=tol,
+             dense_grads_equal_halves_bit_for_bit=dense_bitwise,
+             first_step_loss_diff=first, first_step_loss_tolerance=DIST_DP_LOSS_TOL,
+             first_step_grad_rel_err=_grad_rel_err(runs[0]["grads"], ref_run["grads"]),
+             max_abs_loss_diff=diff, trajectory_tolerance=DIST_TRAJECTORY_TOL,
+             k1_launches=[d["k1_launches"] for d in runs],
+             ms_per_step_median=[d["ms_per_step_median"] for d in runs],
+             reference_ms_per_step_median=ref_run["ms_per_step_median"],
+             instrumented_ms_per_step_median=[d["instrumented_ms_per_step_median"] for d in runs],
+             transport_ms_per_step_median=[d["transport_ms_per_step_median"] for d in runs],
+             transport_share_of_instrumented_step=[
+                 d["transport_share_of_instrumented_step"] for d in runs],
+             table_grad_all_reduce_ms=[d["table_grad_all_reduce_ms"] for d in runs])
+        check(all(d["losses"] == runs[0]["losses"] for d in runs), f"{name}: the ranks' losses differ")
+        check(half_loss <= DIST_HALVES_LOSS_TOL, f"{name}: first loss {half_loss} off the halves'")
+        check(all(half_err[n] <= tol[n] for n in half_err), f"{name}: first gradients {half_err}")
+        check(first <= DIST_DP_LOSS_TOL, f"{name}: first losses differ by {first}")
+        check(diff <= DIST_TRAJECTORY_TOL, f"{name}: losses differ by {diff}")
+        check(all(d["k1_launches"] == DIST_STEPS for d in runs),
+              f"{name}: K1 launches {[d['k1_launches'] for d in runs]}")
+
+    tt = [r["twotower"] for r in ranks]
+    tt_first = abs(tt[0]["losses"][0] - tt_ref["losses"][0])
+    tt_diff = _max_diff(tt[0]["losses"], tt_ref["losses"])
+    tt_grads = _grad_rel_err(tt[0]["grads"], tt_ref["grads"])
+    noise = _grad_rel_err(tt_ref["grads"], tt32_ref["grads"])  # one rank's own bf16 rounding
+    tt_tol = {n: DIST_BF16_NOISE_FACTOR * noise[n] + DIST_HALVES_RTOL for n in tt_grads}
+    emit("dist_twotower", mesh=[DIST_RANKS, 1], rows_per_rank=tt[0]["rows_per_rank"],
+         losses=tt[0]["losses"], reference_losses=tt_ref["losses"], first_step_loss_diff=tt_first,
+         first_step_loss_tolerance=DIST_TT_LOSS_TOL, first_step_grad_rel_err=tt_grads,
+         grad_rtol=tt_tol, one_rank_bf16_against_f32_grad_rel_err=noise,
+         max_abs_loss_diff=tt_diff, trajectory_tolerance=DIST_TRAJECTORY_TOL,
+         k1_launches=[t["k1_launches"] for t in tt],
+         ms_per_step_median=[t["ms_per_step_median"] for t in tt],
+         reference_ms_per_step_median=tt_ref["ms_per_step_median"],
+         instrumented_ms_per_step_median=[t["instrumented_ms_per_step_median"] for t in tt],
+         transport_ms_per_step_median=[t["transport_ms_per_step_median"] for t in tt],
+         transport_share_of_instrumented_step=[
+             t["transport_share_of_instrumented_step"] for t in tt])
+    check(all(t["losses"] == tt[0]["losses"] for t in tt), "dist_twotower: the ranks' losses differ")
+    check(tt_first <= DIST_TT_LOSS_TOL, f"dist_twotower: first losses differ by {tt_first}")
+    check(all(tt_grads[n] <= tt_tol[n] for n in tt_grads), f"dist_twotower: first gradients {tt_grads}")
+    check(tt_diff <= DIST_TRAJECTORY_TOL, f"dist_twotower: losses differ by {tt_diff}")
+    check(all(t["k1_launches"] == TT_K1_PER_STEP * DIST_TT_STEPS for t in tt),
+          "dist_twotower: K1 launches")
+
+    # the dry run's entry point: one NCCL rank on a 1 x 1 mesh, two gloo
+    # ranks on a (1, 2) mesh; K1 once a DLRM step, 4 times a PinSage step
+    dryruns["gloo2"] = [r["dryrun"] for r in ranks]
+    emit("dist_dryrun", **{k: [dict(d) for d in v] for k, v in dryruns.items()})
+    for k, runs in dryruns.items():
+        check(all(d["losses"] == runs[0]["losses"] and set(d["losses"]) == {"dlrm", "pinsage"}
+                  and all(np.isfinite(x) for x in d["losses"].values()) for d in runs),
+              f"dist_dryrun {k}: losses {[d['losses'] for d in runs]}")
+        check(all(d["k1_launches"] == 5 for d in runs),
+              f"dist_dryrun {k}: K1 launches {[d['k1_launches'] for d in runs]}")
+    check([d["backend"] for d in dryruns["nccl1"]] == ["nccl"], "dist_dryrun: not NCCL")
+
+    # dist_checkpoint: the (1, 2) run's checkpoint resumed here at (1, 1)
+    saved = [r["checkpoint"] for r in ranks]
+    reset_counts()
+    resumed, _ = _cli_run([*DIST_ARGS, "--steps", str(DIST_STEPS - DIST_CKPT_STEPS), "--resume",
+                           "--checkpoint_dir", str(ckpt)], train_ctr.main)
+    resumed_k1 = ek.sorted_scatter_add.launches
+    want, got = ref_state.model.state_dict(), resumed.model.state_dict()
+    differing = [k for k in want if not torch.equal(want[k], got[k])]
+    moments = ref_state.optimizer.state_dict(), resumed.optimizer.state_dict()
+    differing += [f"{w}[{i}]" for w in ("mu", "nu")
+                  for i, (a, b) in enumerate(zip(moments[0][w], moments[1][w]))
+                  if not torch.equal(a, b)]
+    files = sorted(f.name for f in ckpt.iterdir())
+    emit("dist_checkpoint", saved_at=[1, DIST_RANKS], restored_at=[1, 1],
+         saved_steps=DIST_CKPT_STEPS, resumed_step=resumed.step, checkpoints=files,
+         tensors_differing_from_uninterrupted=differing,
+         k1_launches=[s["k1_launches"] for s in saved] + [resumed_k1])
+    check(resumed.step == DIST_STEPS, f"dist_checkpoint resumed to step {resumed.step}")
+    check(not differing, f"dist_checkpoint: the resumed state differs in {differing}")
+    shutil.rmtree(root, ignore_errors=True)
+    emit("dist_phases", seconds=time.perf_counter() - t_all)
+    return dict(dist_reference=ref["k1_launches"] + dp_ref["k1_launches"] + tt_ref["k1_launches"],
+                dist_nccl1=nccl["k1_launches"],
+                dist_psum=sum(r["psum"]["k1_launches"] for r in ranks),
+                dist_a2a=sum(r["a2a"]["k1_launches"] for r in ranks),
+                **{f"dist_{k}": sum(r[k]["k1_launches"] for r in ranks)
+                   for k in ("dp", "dp_f32", "twotower")},
+                dist_dryrun=sum(d["k1_launches"] for v in dryruns.values() for d in v),
+                dist_checkpoint=sum(s["k1_launches"] for s in saved) + resumed_k1)
+
+
+def _gloo_probe_rank(rank: int, world: int, address: str, out: str):
+    """Each collective the port uses, called by plain ``torch.distributed``
+    on CUDA tensors of a gloo group: accepted, or the error it raised."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://{address}", world_size=world, rank=rank)
+    torch.cuda.set_device(0)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        x = (torch.arange(4 * world, device="cuda") + rank).to(dtype)
+        calls = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(4 * world * world, dtype=dtype, device="cuda"), x),
+            "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                torch.empty(4, dtype=dtype, device="cuda"), x),
+        }
+        for name, call in calls.items():
+            try:
+                call()
+                torch.cuda.synchronize()
+                res[f"{name}/{dtype}"] = "accepted"
+            except (RuntimeError, ValueError, TypeError) as e:  # a probe: what gloo refuses
+                res[f"{name}/{dtype}"] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    with open(f"{out}/probe_{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def probe_gloo_cuda() -> dict:
+    """Which of the port's four collectives gloo takes on CUDA tensors, as
+    two ranks on this card find it (``--probe-gloo-cuda``)."""
+    import multiprocessing
+
+    out = _build.BUILD_DIR / "gloo_probe"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    address = f"127.0.0.1:{_free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_probe_rank, args=(r, 2, address, str(out)))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check([p.exitcode for p in procs] == [0, 0], "gloo probe ranks failed")
+    with open(out / "probe_0.json") as f:
+        return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2801,9 +3552,20 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}), flush=True)
         return 0
+    if sys.argv[1:] == ["--probe-gloo-cuda"]:
+        smi = phase_device()
+        emit("gloo_cuda_probe", torch=torch.__version__, calls=probe_gloo_cuda())
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--dist"]:
+        smi = phase_device()
+        phase_build()
+        emit("dist_only", launches_by_path=phase_dist(device))
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"usage: {sys.argv[0]} [--profile-bst | --profile-dien | --profile-mt-graph | "
-              "--fwd-occupancy]",
+              "--fwd-occupancy | --probe-gloo-cuda | --dist]",
               file=sys.stderr)
         return 2
     smi = phase_device()
@@ -2855,6 +3617,7 @@ def main() -> int:
     phase_serve_corpus(device)
     phase_retrieval_card_cpu(device)
     emit("retrieval_phases", seconds=time.perf_counter() - t0)
+    dist_k1 = phase_dist(device)
     ctr_k1 = {"ctr_cli": ctr["dlrm"]["k1_launches"] + ctr["dlrm_again"]["k1_launches"],
               "ctr_cli_dedup": (ctr["dlrm_dedup"]["k1_launches"]
                                 + ctr["dlrm_dedup_again"]["k1_launches"]),
@@ -2874,10 +3637,11 @@ def main() -> int:
         # + the CTR, multi-task, graph and retrieval runs and entry points
         "launches": (dlrm_k1 + bst_launches["k1"] + long_launches["k1"] + dien_k1 + din_k1
                      + dien_long_k1 + cli_k1 + sum(ctr_k1.values()) + sum(graph_k1.values())
-                     + sum(retrieval_k1.values())),
+                     + sum(retrieval_k1.values()) + sum(dist_k1.values())),
         "launches_by_path": dict(dlrm=dlrm_k1, bst=bst_launches["k1"], bst_long=long_launches["k1"],
                                  dien=dien_k1, din=din_k1, dien_long=dien_long_k1,
-                                 dien_cli=cli_k1, **ctr_k1, **graph_k1, **retrieval_k1),
+                                 dien_cli=cli_k1, **ctr_k1, **graph_k1, **retrieval_k1,
+                                 **dist_k1),
         "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2910,6 +3674,11 @@ def main() -> int:
         **{f"{case}_{key}": k1[f"{case}_order"][key]
            for case in ("pinsage_year_f32", "pinsage_id_f32", "twotower_user_f32",
                         "twotower_item_f32")
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        # the row-sharded DLRM table's backward on shard 0 [500,000, 16] at
+        # model 2 (bf16 cotangent): the psum exchange's ids and the a2a's
+        **{f"{case}_{key}": k1[f"{case}_order"][key]
+           for case in ("dist_psum_shard_bf16", "dist_a2a_shard_bf16")
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     # each K2 kernel at the shape of its main path: the fused forward and

@@ -10,8 +10,11 @@ at ``benchmarks/bench_models.py::bench_bst`` width, later slices the
 DIN/DIEN family through the ``cli.train_dien`` entry point with checkpoint
 and resume, the CTR family (DLRM, DeepFM, DCN) through ``cli.train_ctr``
 and ``cli.predict``, the multi-task family (BASE, ESMM, MMOE) through
-``cli.train_esmm`` and ``cli.predict --family esmm``, and the
-graph-embedding family (BGE, GES, EGES) through ``cli.train_eges``:
+``cli.train_esmm`` and ``cli.predict --family esmm``, the
+graph-embedding family (BGE, GES, EGES) through ``cli.train_eges``,
+retrieval and serving, and distribution: one process per GPU on a
+(data, model) mesh of ranks, row-sharded tables, data-parallel training
+and checkpoints across meshes:
 
 * ``cli``       — ``train_dien`` (BASE / DIN / DIEN / BST), ``train_ctr``
                   (DLRM / DeepFM / DCN), ``train_esmm`` (BASE / ESMM /
@@ -31,7 +34,12 @@ graph-embedding family (BGE, GES, EGES) through ``cli.train_eges``:
                   backward is the hand-written CUDA sorted scatter-add
                   (K1), once, or twice with a dedup plan; flash attention,
                   hand-written in CUDA (K2).
-* ``embedding`` — the replicated ``Embedding`` table.
+* ``embedding`` — the ``Embedding`` table, replicated or row-sharded over
+                  the mesh's model axis with the psum and all-to-all
+                  exchanges (``sharded``, whose backward is K1 on each
+                  shard), and the sharding planner (a numpy copy).
+* ``parallel``  — which parameters are row-sharded, and which gradients
+                  their lookups average over the data axis.
 * ``nn``        — ``MLP`` (with flax's input ``BatchNorm``),
                   ``DotInteraction``, ``fm_cross``, ``CrossNetwork``, the
                   BCE and masked auxiliary losses, ``masked_mean_pool``,
@@ -44,9 +52,13 @@ graph-embedding family (BGE, GES, EGES) through ``cli.train_eges``:
                   ``MultiTaskBase``, ``ESMM``, ``MMOE``, ``DeepWalk``,
                   ``GES``, ``EGES`` and the task wrappers.
 * ``retrieval`` — batch scoring for ``cli.predict``.
-* ``core``      — SR-Adam (with per-path update scales), streaming metrics, the single-device ``Trainer``
-                  with checkpoints, early stopping and a prefetcher, the
-                  TensorBoard event writer.
+* ``core``      — SR-Adam (with per-path update scales), streaming
+                  metrics, the ``Trainer`` of one rank (gradients averaged
+                  over the data axis, collective checkpoints of whole
+                  tables), early stopping and a prefetcher, the TensorBoard
+                  event writer, the rank mesh (``mesh``) and the launch and
+                  collectives (``distributed``).
+* ``dryrun``    — one DLRM and one PinSage step on a (data, model) mesh.
 * ``convert``   — flax params and ``batch_stats`` → the port's ``state_dict``.
 
 Divergences from the JAX package are listed in ``PARITY.md`` beside this

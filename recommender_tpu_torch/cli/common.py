@@ -1,16 +1,23 @@
 """Shared CLI plumbing for the port's entry points.
 
 Port of ``recommender_tpu/cli/common.py``: one flag set (the same names and
-defaults) and one trainer bootstrap. New here is ``--device`` (``cuda`` by
-default): an entry point runs on the card unless the caller asks for the
-CPU, and with ``cuda`` and no card it raises instead of carrying on on the
-CPU.
+defaults) and one mesh and trainer bootstrap. New here are ``--device``
+(``cuda`` by default): an entry point runs on the card unless the caller
+asks for the CPU, and with ``cuda`` and no card it raises instead of
+carrying on on the CPU; and ``--dist_backend``: ``auto`` takes NCCL for
+``cuda`` ranks and gloo for ``cpu`` ranks, and ``gloo`` asks for gloo on
+the card, for several ranks sharing one card (``core.distributed``).
 
-Flags whose machinery is not ported yet are accepted and refused at any
-value but their default (``parse_args``), none is silently ignored:
-the mesh flags and the multi-host launch flags (the sharded-table and
-multi-GPU slices) and ``--accum_steps`` (the Trainer slice that ports
-gradient accumulation).
+Multi-process launch: one process per GPU (or per CPU rank), each with
+``--coordinator_address host:port --num_processes N --process_id r``, or
+under ``torchrun`` (its environment), or ``--distributed`` (the
+environment only). The mesh flags lay ``(data, model)`` over the ranks
+(``build_mesh``); each rank reads the rows of its data coordinate
+(``host_local_data``, ``host_batch_size``); only rank 0 logs unless
+``--log_all_hosts``.
+
+``--accum_steps`` is not ported yet: it is accepted and refused at any value
+but its default (``parse_args``), not silently ignored.
 """
 from __future__ import annotations
 
@@ -19,21 +26,13 @@ import json
 
 import torch
 
+from recommender_tpu_torch.core import distributed
+from recommender_tpu_torch.core.mesh import Mesh, MeshSpec, make_mesh
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 
 # flag → (default, the later slice that ports its machinery)
-_MESH = "the sharded-table slice (a device mesh) is not ported yet"
-_MULTI_HOST = "the multi-GPU slice (torch.distributed launch) is not ported yet"
 UNPORTED_FLAGS = {
     "accum_steps": (1, "gradient accumulation comes with the Trainer slice that ports it"),
-    "mesh_data": (0, _MESH),
-    "mesh_model": (1, _MESH),
-    "mesh_dcn": (1, _MESH),
-    "coordinator_address": ("", _MULTI_HOST),
-    "num_processes": (0, _MULTI_HOST),
-    "process_id": (-1, _MULTI_HOST),
-    "log_all_hosts": (False, _MULTI_HOST),
-    "distributed": (False, _MULTI_HOST),
 }
 
 
@@ -49,12 +48,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--eval_batches", type=int, default=0, help="0 = full pass")
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh_data", type=int, default=0,
-                   help="not ported yet: any value but 0 is refused")
+    p.add_argument("--mesh_data", type=int, default=0, help="0 = all ranks")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="not ported yet: any value but 1 is refused")
+                   help="ranks each row-sharded table is split over")
     p.add_argument("--mesh_dcn", type=int, default=1,
-                   help="not ported yet: any value but 1 is refused")
+                   help=">1 = that many slices (nodes), each a (mesh_data x mesh_model) "
+                        "group, folded into the data axis (core/mesh.py MeshSpec)")
     p.add_argument("--checkpoint_dir", type=str, default="")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
@@ -62,20 +61,29 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="use the built-in synthetic dataset (no files needed)")
     p.add_argument("--tensorboard_dir", type=str, default="",
                    help="also write train/eval curves as TensorBoard event files")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to train on; 'cuda' needs a card, 'cpu' "
-                        "runs the kernels' plain versions")
-    # the multi-host launch surface of the JAX package: not ported yet
-    p.add_argument("--coordinator_address", type=str, default="",
-                   help="not ported yet: refused when set")
-    p.add_argument("--num_processes", type=int, default=0,
-                   help="not ported yet: any value but 0 is refused")
-    p.add_argument("--process_id", type=int, default=-1,
-                   help="not ported yet: any value but -1 is refused")
+    add_launch_flags(p)
     p.add_argument("--log_all_hosts", action="store_true",
-                   help="not ported yet: refused when set")
+                   help="every rank logs JSONL (tagged with its rank) instead of rank 0 only")
+    return p
+
+
+def add_launch_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--device``, ``--dist_backend`` and the multi-process launch surface
+    (core/distributed.py): run the same command once per rank with its
+    ``--process_id``, or under torchrun."""
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on; 'cuda' needs a card, 'cpu' "
+                        "runs the kernels' plain versions")
+    p.add_argument("--dist_backend", choices=list(distributed.BACKENDS), default="auto",
+                   help="auto = nccl for cuda ranks, gloo for cpu ranks; gloo on cuda = "
+                        "several ranks sharing one card (core/distributed.py)")
+    p.add_argument("--coordinator_address", type=str, default="",
+                   help="host:port of rank 0's rendezvous (or MASTER_ADDR:MASTER_PORT)")
+    p.add_argument("--num_processes", type=int, default=0,
+                   help="ranks in the job (or WORLD_SIZE)")
+    p.add_argument("--process_id", type=int, default=-1, help="this rank (or RANK)")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet: refused when set")
+                   help="initialize from torchrun's environment alone")
     return p
 
 
@@ -101,7 +109,46 @@ def resolve_device(args) -> torch.device:
     return device
 
 
-def build_trainer(args, loss_fn, eval_fn=None, *, device) -> Trainer:
+def setup_distributed(args) -> tuple[int, int]:
+    """Initialize the process group from the flags (a no-op when none is
+    set); call first in every entry point, before any device use: it also
+    picks this rank's card. Returns ``(rank, world_size)``."""
+    return distributed.initialize_from_flags(
+        args.coordinator_address, args.num_processes, args.process_id,
+        auto=args.distributed, device=args.device, backend=args.dist_backend,
+    )
+
+
+def build_mesh(args) -> Mesh:
+    """The ``(data, model)`` mesh of the flags over the initialized ranks."""
+    world = distributed.dist.get_world_size() if distributed.dist.is_initialized() else 1
+    if args.mesh_dcn < 1 or args.mesh_model < 1 or args.mesh_data < 0:
+        raise SystemExit(
+            f"--mesh_dcn ({args.mesh_dcn}) and --mesh_model ({args.mesh_model}) must be >= 1, "
+            f"--mesh_data ({args.mesh_data}) >= 0"
+        )
+    data = args.mesh_data or world // (args.mesh_model * args.mesh_dcn)
+    need = max(data, 1) * args.mesh_model * args.mesh_dcn
+    if need != world:
+        raise SystemExit(
+            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model} --mesh_dcn "
+            f"{args.mesh_dcn} needs {need} ranks, the job has {world} (--num_processes)"
+        )
+    return make_mesh(MeshSpec(data=data, model=args.mesh_model, dcn_data=args.mesh_dcn))
+
+
+def host_local_data(arrays: dict, mesh: Mesh) -> dict:
+    """This rank's rows of a whole data dict: the rows of its data
+    coordinate (the same for every rank of a model group)."""
+    return distributed.shard_arrays_for_process(arrays, mesh)
+
+
+def host_batch_size(global_batch: int, mesh: Mesh) -> int:
+    """Rows this rank feeds a step: the global batch over the data axis."""
+    return distributed.per_process_batch_size(global_batch, mesh)
+
+
+def build_trainer(args, loss_fn, eval_fn=None, *, device, mesh: Mesh | None = None) -> Trainer:
     cfg = TrainConfig(
         learning_rate=args.learning_rate,
         log_every=args.log_every,
@@ -112,7 +159,7 @@ def build_trainer(args, loss_fn, eval_fn=None, *, device) -> Trainer:
         early_stop_patience=getattr(args, "early_stop_patience", 0),
         lr_scales=getattr(args, "lr_scales", None) or None,
     )
-    return Trainer(loss_fn, cfg, eval_fn, device=device)
+    return Trainer(loss_fn, cfg, eval_fn, device=device, mesh=mesh)
 
 
 def log_jsonl(metrics: dict):
@@ -124,8 +171,18 @@ def make_logger(args, prefix: str = ""):
     is set. Metric dicts without a 'step' key (e.g. final evals) reuse the
     last step seen. ``prefix`` namespaces the run (TB tag prefix + a
     ``role`` field in the JSONL), for an entry point that trains several
-    models in one invocation."""
+    models in one invocation.
+
+    In a multi-process job only rank 0 logs (the metrics are averaged over
+    the data group, so every rank would print the same lines); with
+    ``--log_all_hosts`` every rank logs JSONL, tagged with its rank."""
     role = {"role": prefix.rstrip("/")} if prefix else {}
+    if distributed.dist.is_initialized() and distributed.dist.get_world_size() > 1:
+        rank = distributed.dist.get_rank()
+        if getattr(args, "log_all_hosts", False):
+            return lambda metrics: log_jsonl({"process": rank, **role, **metrics})
+        if rank != 0:
+            return lambda metrics: None
 
     if not getattr(args, "tensorboard_dir", ""):
         if not prefix:

@@ -1,6 +1,8 @@
 """Behavior-sequence CTR entry: BASE / DIN / DIEN / BST.
 
-Port of ``recommender_tpu/cli/train_dien.py``, for one device.
+Port of ``recommender_tpu/cli/train_dien.py``. On a mesh each rank reads
+the rows of its data coordinate and the Trainer averages gradients over the
+data axis; the tables stay replicated, as in JAX's entry point.
 
 Usage:
   python -m recommender_tpu_torch.cli.train_dien --model_type DIEN --synthetic
@@ -21,10 +23,14 @@ import torch
 
 from recommender_tpu_torch.cli.common import (
     base_parser,
+    build_mesh,
     build_trainer,
+    host_batch_size,
+    host_local_data,
     make_logger,
     parse_args,
     resolve_device,
+    setup_distributed,
 )
 from recommender_tpu_torch.data import amazon
 from recommender_tpu_torch.data.pipeline import batch_iterator
@@ -49,16 +55,20 @@ def main(argv=None):
     p.add_argument("--test_file", type=str, default="")
     p.add_argument("--vocab_dir", type=str, default="")
     args = parse_args(p, argv)
+    setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)
+    mesh = build_mesh(args)
 
     need_neg = args.model_type == "DIEN"
-    train_bs, test_bs = args.train_batch_size, args.test_batch_size
+    # each rank reads the rows of its data coordinate, global/data a step
+    train_bs = host_batch_size(args.train_batch_size, mesh)
+    test_bs = host_batch_size(args.test_batch_size, mesh)
     synthetic = args.synthetic or not args.train_file
     if synthetic:
         gen = SyntheticSequence(max_len=args.history_max_length, seed=args.seed)
-        train_arrays = gen.sample(50_000, seed=1)
-        test_arrays = gen.sample(10_000, seed=2)
+        train_arrays = host_local_data(gen.sample(50_000, seed=1), mesh)
+        test_arrays = host_local_data(gen.sample(10_000, seed=2), mesh)
         item_vocab_size, cat_vocab_size = gen.num_items, gen.num_cats
         train_iter = batch_iterator(train_arrays, train_bs, seed=args.seed, epochs=None)
     else:
@@ -67,8 +77,10 @@ def main(argv=None):
         else:
             iv, cv, i2c = amazon.build_vocab(args.train_file)
         i2c_arr = amazon.make_item2cat_array(iv, cv, i2c)
-        train_arrays = amazon.encode_dataset(args.train_file, iv, cv, args.history_max_length)
-        test_arrays = amazon.encode_dataset(args.test_file, iv, cv, args.history_max_length)
+        train_arrays = host_local_data(
+            amazon.encode_dataset(args.train_file, iv, cv, args.history_max_length), mesh)
+        test_arrays = host_local_data(
+            amazon.encode_dataset(args.test_file, iv, cv, args.history_max_length), mesh)
         if need_neg:
             # the test set's negatives are drawn once; training draws them per batch
             rng = np.random.default_rng(args.seed)
@@ -86,11 +98,11 @@ def main(argv=None):
         item_dim=args.embedding_size,
         cat_dim=args.embedding_size,
         embed_param_dtype=torch.bfloat16 if args.embed_dtype == "bf16" else torch.float32,
-        device=device,
+        mesh=mesh, device=device,
     )
     task = make_aux_loss_task if args.model_type == "DIEN" else make_ctr_task
     loss_fn, eval_fn = task(model)
-    trainer = build_trainer(args, loss_fn, eval_fn, device=device)
+    trainer = build_trainer(args, loss_fn, eval_fn, device=device, mesh=mesh)
     next(train_iter)  # the batch the JAX entry point's init takes as its shape example
     state = trainer.init_state(lambda: init_model(model, seed=args.seed))
     if args.resume and args.checkpoint_dir:

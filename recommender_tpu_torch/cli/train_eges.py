@@ -1,6 +1,9 @@
 """Graph item-embedding entry: BGE (DeepWalk) / GES / EGES.
 
-Port of ``recommender_tpu/cli/train_eges.py``, for one device.
+Port of ``recommender_tpu/cli/train_eges.py``. On a mesh each data rank samples its
+own stream (its seed offset by its data coordinate), the tables are built on
+the mesh (their lookups average their gradients over the data axis), and
+rank 0 writes the export.
 
 Usage:
   python -m recommender_tpu_torch.cli.train_eges --model_type EGES --synthetic
@@ -28,10 +31,13 @@ import torch
 
 from recommender_tpu_torch.cli.common import (
     base_parser,
+    build_mesh,
     build_trainer,
+    host_batch_size,
     make_logger,
     parse_args,
     resolve_device,
+    setup_distributed,
 )
 from recommender_tpu_torch.data import amazon_meta
 from recommender_tpu_torch.graph.store import WeightedGraph
@@ -104,8 +110,10 @@ def main(argv=None):
             "cat_embedding": args.shared_lr_scale,
             "brand_embedding": args.shared_lr_scale,
         }
+    setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)
+    mesh = build_mesh(args)
     use_side = args.model_type in ("GES", "EGES")
 
     if args.synthetic or not args.meta_file:
@@ -129,22 +137,26 @@ def main(argv=None):
         )
 
     if args.model_type == "BGE":
-        model = DeepWalk(vocab_size=g.num_nodes, embed_dim=args.embedding_size, device=device)
+        model = DeepWalk(vocab_size=g.num_nodes, embed_dim=args.embedding_size, mesh=mesh,
+                         device=device)
     else:
         cls = GES if args.model_type == "GES" else EGES
         model = cls(
             vocab_size=g.num_nodes, cat_vocab=cat_vocab_size,
-            brand_vocab=brand_vocab_size, embed_dim=args.embedding_size, device=device,
+            brand_vocab=brand_vocab_size, embed_dim=args.embedding_size, mesh=mesh,
+            device=device,
         )
 
     loss_fn, eval_fn = make_skipgram_task(model)
     it = skipgram_batches(
         g, walk_length=args.random_walk_length, window=args.window_size,
-        num_negatives=args.num_negatives, batch_size=args.train_batch_size,
+        num_negatives=args.num_negatives,
+        batch_size=host_batch_size(args.train_batch_size, mesh),
         walks_per_round=max(64, args.train_batch_size // 8),
-        side_info=side if use_side else None, seed=args.seed,
+        # each data rank walks with its own seed: disjoint random streams
+        side_info=side if use_side else None, seed=args.seed + mesh.data_index,
     )
-    trainer = build_trainer(args, loss_fn, eval_fn, device=device)
+    trainer = build_trainer(args, loss_fn, eval_fn, device=device, mesh=mesh)
     next(it)  # the batch the JAX entry point's init takes as its shape example
     state = trainer.init_state(lambda: init_model(model, seed=args.seed))
     if args.resume and args.checkpoint_dir:
@@ -153,7 +165,7 @@ def main(argv=None):
     if triples is not None:
         auc = link_prediction_auc(model, triples)
         log({"final": 1, "link_prediction_auc": auc})
-    if args.export:
+    if args.export and mesh.rank == 0:  # one writer
         export_serving_bundle(
             args.export, corpus_hidden(model, g.num_nodes, side if use_side else None),
             metadata={"model": args.model_type, "embed_dim": args.embedding_size},

@@ -1,6 +1,9 @@
 """PinSage entry: GNN retrieval on MovieLens.
 
-Port of ``recommender_tpu/cli/train_pinsage.py``, for one device.
+Port of ``recommender_tpu/cli/train_pinsage.py``. On a mesh each data rank samples its
+own stream (its seed offset by its data coordinate), the tables are built on
+the mesh (their lookups average their gradients over the data axis), and
+rank 0 writes the export.
 
 Usage:
   python -m recommender_tpu_torch.cli.train_pinsage --synthetic
@@ -27,10 +30,13 @@ import numpy as np
 
 from recommender_tpu_torch.cli.common import (
     base_parser,
+    build_mesh,
     build_trainer,
+    host_batch_size,
     make_logger,
     parse_args,
     resolve_device,
+    setup_distributed,
 )
 from recommender_tpu_torch.data.movielens import ground_truth_matrix, parse_movielens
 from recommender_tpu_torch.graph.bipartite import BipartiteGraph
@@ -96,8 +102,10 @@ def main(argv=None):
                         "the clustered small-Q latency path")
     p.set_defaults(train_batch_size=32)
     args = parse_args(p, argv)
+    setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)
+    mesh = build_mesh(args)
 
     if args.synthetic or not args.data_dir:
         g, feats, latest, test_item, seen = _synthetic(args.seed)
@@ -108,15 +116,18 @@ def main(argv=None):
 
     model = PinSage(
         features=feats, embed_dim=args.embedding_size,
-        conv_hidden=args.conv_hidden_size, conv_out=args.conv_output_size, device=device,
+        conv_hidden=args.conv_hidden_size, conv_out=args.conv_output_size, mesh=mesh,
+        device=device,
     )
     loss_fn = make_pinsage_task(model)
     sampler_kw = dict(
         num_neighbors=args.num_neighbors, num_walks=args.num_random_walks,
         walk_length=args.random_walk_length,
     )
-    it = pinsage_train_batches(g, args.train_batch_size, seed=args.seed, **sampler_kw)
-    trainer = build_trainer(args, loss_fn, None, device=device)
+    # each data rank samples with its own seed: disjoint random streams
+    it = pinsage_train_batches(g, host_batch_size(args.train_batch_size, mesh),
+                               seed=args.seed + mesh.data_index, **sampler_kw)
+    trainer = build_trainer(args, loss_fn, None, device=device, mesh=mesh)
     next(it)  # the batch the JAX entry point's init takes as its shape example
     state = trainer.init_state(lambda: init_model(model, seed=args.seed))
     if args.resume and args.checkpoint_dir:
@@ -130,7 +141,7 @@ def main(argv=None):
     recs = recommend_topk(reprs, latest, seen, k=args.top_k, device=device)
     gt = ground_truth_matrix(test_item, g.num_items)
     log({"final": 1, "hit_rate": hit_rate(recs, gt)})
-    if args.export:
+    if args.export and mesh.rank == 0:  # one writer
         from recommender_tpu_torch.retrieval.export import export_serving_bundle
 
         nbr, w = g.importance_neighbors(

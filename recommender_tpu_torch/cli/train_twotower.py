@@ -1,6 +1,8 @@
 """Two-tower retrieval entry: dual encoders with in-batch softmax.
 
-Port of ``recommender_tpu/cli/train_twotower.py``, for one device.
+Port of ``recommender_tpu/cli/train_twotower.py``. On a mesh each data rank samples its
+own stream (its seed offset by its data coordinate) and rank 0 writes the
+export.
 
 Usage:
   python -m recommender_tpu_torch.cli.train_twotower --synthetic
@@ -24,10 +26,13 @@ import torch
 
 from recommender_tpu_torch.cli.common import (
     base_parser,
+    build_mesh,
     build_trainer,
+    host_batch_size,
     make_logger,
     parse_args,
     resolve_device,
+    setup_distributed,
 )
 from recommender_tpu_torch.cli.train_pinsage import read_movielens
 from recommender_tpu_torch.data.movielens import ground_truth_matrix
@@ -85,8 +90,10 @@ def main(argv=None):
     p.add_argument("--export_ivf_clusters", type=int, default=0)
     p.set_defaults(train_batch_size=1024)
     args = parse_args(p, argv)
+    setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)
+    mesh = build_mesh(args)
 
     if args.synthetic or not args.data_dir:
         g, test_item, seen = _synthetic(args.seed)
@@ -97,11 +104,15 @@ def main(argv=None):
     model = TwoTower(
         user_vocab=g.num_users, item_vocab=g.num_items,
         embed_dim=args.embedding_size, repr_dim=args.repr_size,
-        temperature=args.temperature, device=device,
+        temperature=args.temperature, device=device, mesh=mesh,
+        partition="model" if args.mesh_model > 1 else None,
     )
     loss_fn, eval_fn = make_two_tower_task(model)
-    it = interaction_batches(g, args.train_batch_size, seed=args.seed)
-    trainer = build_trainer(args, loss_fn, eval_fn, device=device)
+    # each data rank draws its own pairs; the loss's negatives are the
+    # global batch's items (models.two_tower)
+    it = interaction_batches(g, host_batch_size(args.train_batch_size, mesh),
+                             seed=args.seed + 1000 * mesh.data_index)
+    trainer = build_trainer(args, loss_fn, eval_fn, device=device, mesh=mesh)
     next(it)  # the batch the JAX entry point's init takes as its shape example
     state = trainer.init_state(lambda: init_model(model, seed=args.seed))
     if args.resume and args.checkpoint_dir:
@@ -117,7 +128,7 @@ def main(argv=None):
     recs = recommend_topk_from_queries(uq, reprs, seen, k=args.top_k, device=device)
     gt = ground_truth_matrix(test_item, g.num_items)
     log({"final": 1, "hit_rate": hit_rate(recs, gt)})
-    if args.export:
+    if args.export and mesh.rank == 0:  # one writer
         from recommender_tpu_torch.retrieval.export import export_serving_bundle
 
         export_serving_bundle(

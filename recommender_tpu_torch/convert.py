@@ -16,6 +16,11 @@ modules carry the flax names:
   the same names.
 
 bf16 arrays (numpy's ``bfloat16`` extension dtype) keep their bits.
+
+``load_flax_params`` into a model with row-sharded tables (a ``mesh`` with
+a model axis wider than 1, ``parallel.partitioning``) keeps this rank's
+rows of each whole table of the JAX tree, so a JAX init loads into a
+sharded port as it does into a whole one.
 """
 from __future__ import annotations
 
@@ -56,9 +61,15 @@ def flax_to_state_dict(params: dict, batch_stats: dict | None = None) -> dict[st
 def load_flax_params(model: nn.Module, params: dict, batch_stats: dict | None = None) -> nn.Module:
     """Copy a flax param tree, and the ``batch_stats`` collection where the
     model has BatchNorm buffers, into ``model``: every entry of its
-    ``state_dict`` must be matched by name, shape and dtype."""
+    ``state_dict`` must be matched by name, shape and dtype, a row shard by
+    its rows of the whole table."""
+    from recommender_tpu_torch.parallel.partitioning import row_sharded_params
+
     state = flax_to_state_dict(params, batch_stats)
     own = model.state_dict()
+    for name, (lo, vocab) in row_sharded_params(model).items():
+        if name in state and state[name].shape[0] == vocab:
+            state[name] = state[name][lo:lo + own[name].shape[0]].clone()
     for name, value in state.items():
         if name not in own:
             raise KeyError(f"{name} has no counterpart in {type(model).__name__}")

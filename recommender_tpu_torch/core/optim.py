@@ -53,11 +53,13 @@ def scale_by_adam_sr(
     b2: float = 0.999,
     eps: float = 1e-8,
     seed: int = 0,
+    offsets: Optional[Sequence[int]] = None,
 ) -> tuple[list, list, list]:
     """One Adam moment step. ``count`` is the number of steps taken before
     this one. Returns ``(f32 updates, new mu, new nu)``; each new moment
     keeps its old storage dtype, written with stochastic rounding when that
-    dtype is low-precision."""
+    dtype is low-precision. ``offsets[i]`` is leaf ``i``'s first element's
+    index in its whole table (a row shard's; 0 for everything else)."""
     # bias corrections in f32 on the host, as JAX computes them in f32
     t = np.float32(count + 1)
     c1 = float(np.float32(1.0) - np.float32(b1) ** t)
@@ -70,8 +72,9 @@ def scale_by_adam_sr(
         nf = b2 * n.to(torch.float32) + (1.0 - b2) * gf * gf
         out.append((mf / c1) / (torch.sqrt(nf / c2) + eps))
         if is_low_precision(m.dtype):
-            new_mu.append(stochastic_round_to(mf, m.dtype, fold_in(base_key, 2 * i)))
-            new_nu.append(stochastic_round_to(nf, n.dtype, fold_in(base_key, 2 * i + 1)))
+            off = offsets[i] if offsets else 0
+            new_mu.append(stochastic_round_to(mf, m.dtype, fold_in(base_key, 2 * i), off))
+            new_nu.append(stochastic_round_to(nf, n.dtype, fold_in(base_key, 2 * i + 1), off))
         else:
             new_mu.append(mf.to(m.dtype))
             new_nu.append(nf.to(n.dtype))
@@ -101,16 +104,19 @@ def path_scales(names: Sequence[str], scales: Optional[dict]) -> list[float]:
 
 
 def apply_updates_sr(
-    params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor], key: Key
+    params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor], key: Key,
+    offsets: Optional[Sequence[int]] = None,
 ) -> list:
     """``p + u`` with an f32 add and a stochastic-rounded write for
     low-precision leaves (unbiased: sub-ulp Adam updates land in
-    expectation instead of rounding away)."""
+    expectation instead of rounding away); ``offsets`` as in
+    ``scale_by_adam_sr``."""
     out = []
     for i, (p, u) in enumerate(zip(params, updates)):
         if is_low_precision(p.dtype):
             summed = p.to(torch.float32) + u.to(torch.float32)
-            out.append(stochastic_round_to(summed, p.dtype, fold_in(key, i)))
+            off = offsets[i] if offsets else 0
+            out.append(stochastic_round_to(summed, p.dtype, fold_in(key, i), off))
         else:
             out.append(p + u.to(p.dtype))
     return out
@@ -145,6 +151,7 @@ class AdamSR(torch.optim.Optimizer):
         seed: int = 0,
         moment_dtype: Optional[torch.dtype] = None,
         scales: Optional[Sequence[float]] = None,
+        offsets: Optional[Sequence[int]] = None,
     ):
         super().__init__(list(params), dict(lr=lr, b1=b1, b2=b2, eps=eps))
         if len(self.param_groups) != 1:
@@ -153,6 +160,9 @@ class AdamSR(torch.optim.Optimizer):
         if scales is not None and len(scales) != n:
             raise ValueError(f"{len(scales)} scales for {n} params")
         self.scales = None if scales is None else [float(s) for s in scales]
+        if offsets is not None and len(offsets) != n:
+            raise ValueError(f"{len(offsets)} offsets for {n} params")
+        self.offsets = None if offsets is None else [int(o) for o in offsets]
         self.seed = seed
         self.count = 0  # Adam steps taken (optax ScaleByAdamState.count)
         for p in self.param_groups[0]["params"]:
@@ -171,13 +181,14 @@ class AdamSR(torch.optim.Optimizer):
         mu = [self.state[p]["mu"] for p in params]
         nu = [self.state[p]["nu"] for p in params]
         upd, new_mu, new_nu = scale_by_adam_sr(
-            grads, mu, nu, self.count, group["b1"], group["b2"], group["eps"], self.seed
+            grads, mu, nu, self.count, group["b1"], group["b2"], group["eps"], self.seed,
+            self.offsets,
         )
         lr = group["lr"](self.count) if callable(group["lr"]) else group["lr"]
         upd = [-lr * u for u in upd]  # optax.scale_by_learning_rate
         if self.scales is not None:  # optax.chain(base, _scale_updates_by_path)
             upd = [u * s for u, s in zip(upd, self.scales)]
-        new_params = apply_updates_sr(params, upd, write_key)
+        new_params = apply_updates_sr(params, upd, write_key, self.offsets)
         for p, m, n, m_new, n_new, p_new in zip(params, mu, nu, new_mu, new_nu, new_params):
             m.copy_(m_new)
             n.copy_(n_new)

@@ -1,16 +1,32 @@
 """The training engine: step, eval cadence, checkpoints, logging, divergence
 guard.
 
-Port of ``recommender_tpu/core/train.py`` for one device. A step is the
-eager PyTorch sequence forward → backward (the embedding gradient through
-the sorted scatter-add kernel) → ``AdamSR`` step, which writes the params
-in place.
+Port of ``recommender_tpu/core/train.py``. A step is the eager PyTorch
+sequence forward → backward (the embedding gradient through the sorted
+scatter-add kernel) → ``AdamSR`` step, which writes the params in place.
 
 Protocol (``models.tasks``): ``loss_fn(batch, train) -> (per_example_loss
 [B], aux dict)`` and ``eval_fn(batch) -> (scores [B], labels [B])``, both
 closing over the model. The engine takes the mean of the per-example loss.
 There is no ``model_state``: the model's buffers (BatchNorm's running
 stats) take its place, updated by the forward of each train step.
+
+On a mesh (``core.mesh``; one process per GPU) each rank feeds its own
+rows (``put_batch``), and after the backward the gradients of every
+parameter, replicated or a row shard, are averaged over the data group:
+the mean of the ranks' local means is the global batch's mean, as JAX's
+``psum`` over ``data`` gives it. Every table averages its own gradient in
+its lookup's backward (``embedding.sharded``: the data group's ids and
+cotangent rows are gathered, and K1 sums them once, so a bf16 table's
+gradient is rounded once), and the Trainer all-reduces the other
+parameters' gradients in f32; a table on a data axis must be built on the
+Trainer's mesh (``init_state`` checks it). The ranks of a model group
+compute the same dense gradients from the same rows, so their dense
+parameters stay bit-identical. The step's scalar metrics are averaged over the data group
+too (``a2a_overflow``, a count already summed over the mesh, excepted).
+``evaluate`` sums its metric state over the data group; ``exact=True``
+with more than one data rank warns and reports the histogram AUC, as the
+JAX package does on more than one host.
 
 ``TrainConfig`` holds only the fields this engine implements; any other
 field of the JAX config is a ``TypeError`` at construction rather than a
@@ -29,9 +45,13 @@ workaround and has no counterpart.
 Checkpoints (``save``, ``restore``, ``TrainConfig.checkpoint_dir``): one
 ``torch.save`` file per step number, ``step_<number>.pt``, holding the
 model's ``state_dict`` (params and BatchNorm buffers), ``AdamSR``'s moments
-and count, and the step. Every rounding key derives from the seed, the step
-and the count, so a restored run continues bit for bit, bf16 tables
-included.
+and count, and the step. Every table is whole in it: ``save`` is collective,
+gathers each row-sharded table and its moments over the model group in
+chunks into rank 0's host memory, and rank 0 writes; ``restore`` maps the
+file and has every rank copy its rows of the whole tables, so a checkpoint
+restores onto another mesh, as orbax's do. Every rounding key derives from
+the seed, the step and the count, so a restored run continues bit for
+bit, bf16 tables included.
 """
 from __future__ import annotations
 
@@ -40,6 +60,7 @@ import math
 import os
 import re
 import time
+import warnings
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -47,6 +68,8 @@ import torch
 from torch import nn
 
 from recommender_tpu_torch.convert import jax_leaf_order
+from recommender_tpu_torch.core import distributed
+from recommender_tpu_torch.core.mesh import Mesh, make_mesh
 from recommender_tpu_torch.core.metrics import (
     AUCState,
     MeanState,
@@ -61,6 +84,11 @@ from recommender_tpu_torch.core.optim import AdamSR, path_scales
 from recommender_tpu_torch.data.pipeline import Prefetcher
 from recommender_tpu_torch.nn.losses import binary_cross_entropy
 from recommender_tpu_torch.ops.rounding import fold_in, prng_key
+from recommender_tpu_torch.parallel.partitioning import (
+    data_gathered_params,
+    element_offsets,
+    row_sharded_params,
+)
 
 
 @dataclasses.dataclass
@@ -102,7 +130,9 @@ class TrainingDiverged(RuntimeError):
 
 
 class Trainer:
-    """Single-device engine (see the module docstring for the protocol)."""
+    """The engine of one rank (see the module docstring for the protocol).
+    ``mesh`` defaults to ``core.mesh.make_mesh()``: 1 x 1 without a process
+    group, every rank on ``data`` with one."""
 
     def __init__(
         self,
@@ -111,6 +141,7 @@ class Trainer:
         eval_fn: Optional[Callable] = None,
         *,
         device,
+        mesh: Optional[Mesh] = None,
     ):
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
@@ -118,6 +149,7 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = mesh if mesh is not None else make_mesh()
         self._sr_key = fold_in(prng_key(cfg.seed), 0x5EED)
 
     # ------------------------------------------------------------------- init
@@ -128,13 +160,25 @@ class Trainer:
         each param's rounding keys match the JAX package's. Stochastic
         rounding applies to the low-precision params — the JAX Trainer's
         automatic ``stochastic_round`` mode. ``cfg.lr_scales`` gives each
-        param its update multiplier by its name."""
+        param its update multiplier by its name. A table row-sharded over
+        ``model`` must be sharded on this trainer's mesh, and rounds with
+        the whole table's noise (``parallel.partitioning``); on a data axis
+        wider than 1 every table must be built on this trainer's mesh, whose
+        lookup averages the table's gradient."""
         model = init_model_fn()
         named = jax_leaf_order(model)
         # buffers (BatchNorm's running stats) are the JAX Trainer's model_state
         for name, t in [*named, *model.named_buffers()]:
             if t.device != self.device:
                 raise ValueError(f"{name} is on {t.device}, trainer on {self.device}")
+        for name, module in model.named_modules():
+            mesh = getattr(module, "mesh", None)
+            partitioned = getattr(module, "partition", None) == "model" and self.mesh.model > 1
+            table_on_data = hasattr(module, "data_gathered") and self.mesh.data > 1
+            if (mesh is not None or partitioned or table_on_data) and mesh is not self.mesh:
+                raise ValueError(
+                    f"{name or type(module).__name__} is built on mesh {mesh}, the trainer's "
+                    f"is {self.mesh}; build the model with the trainer's mesh=")
         mdt = self.cfg.moment_dtype
         optimizer = AdamSR(
             [p for _, p in named],
@@ -143,6 +187,8 @@ class Trainer:
             moment_dtype=None if mdt is None else getattr(torch, mdt),
             scales=path_scales([n for n, _ in named], self.cfg.lr_scales)
             if self.cfg.lr_scales else None,
+            offsets=element_offsets(model, [n for n, _ in named])
+            if row_sharded_params(model) else None,
         )
         return TrainState(step=0, model=model, optimizer=optimizer)
 
@@ -154,10 +200,43 @@ class Trainer:
         loss = torch.mean(per_ex)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh.data > 1:
+            gathered = data_gathered_params(state.model)
+            self._average_grads([p for n, p in jax_leaf_order(state.model) if n not in gathered])
         state.optimizer.step(fold_in(self._sr_key, state.step))
         metrics = dict(aux)
         metrics["loss"] = loss.detach()
+        if self.mesh.data > 1:
+            metrics = self._average_metrics(metrics)
         return dataclasses.replace(state, step=state.step + 1), metrics
+
+    def _average_grads(self, params):
+        """Each param's gradient (zeros where it took no part) averaged over
+        the data group, in one f32 all-reduce, and written back in the
+        gradient's dtype."""
+        if not params:
+            return
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+        distributed.all_reduce(flat, group=self.mesh.data_group)
+        flat /= self.mesh.data
+        start = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[start:start + g.numel()].view(g.shape).to(g.dtype)
+            start += g.numel()
+
+    def _average_metrics(self, metrics: dict) -> dict:
+        """The step's scalar metrics averaged over the data group in one
+        all-reduce; ``a2a_overflow`` is already the mesh's sum."""
+        keys = [k for k, v in metrics.items()
+                if k != "a2a_overflow" and torch.is_tensor(v) and v.numel() == 1
+                and v.is_floating_point()]
+        if not keys:
+            return metrics
+        vals = torch.stack([metrics[k].reshape(()).to(torch.float32) for k in keys])
+        distributed.all_reduce(vals, group=self.mesh.data_group)
+        vals /= self.mesh.data
+        return {**metrics, **dict(zip(keys, vals.unbind()))}
 
     # ------------------------------------------------------------------- loop
     def fit(
@@ -197,7 +276,7 @@ class Trainer:
                 break
             batch = self.put_batch(batch)
             state, metrics = self.train_step(state, batch)
-            window_examples += _batch_size(batch)
+            window_examples += _batch_size(batch) * self.mesh.data
             step = i + 1
             if step % cfg.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -244,10 +323,18 @@ class Trainer:
         self, state: TrainState, batches: Iterable, limit: int = 0, exact: bool = False
     ) -> dict:
         """Streaming histogram AUC, BCE and accuracy accumulated on the
-        device; ``exact=True`` also gathers scores and labels to the host
-        for the sort-based exact AUC."""
+        device and summed over the data group; ``exact=True`` also gathers
+        scores and labels to the host for the sort-based exact AUC (one data
+        rank only: with more it warns and keeps the histogram AUC)."""
         if self.eval_fn is None:
             raise ValueError("no eval_fn configured")
+        if exact and self.mesh.data > 1:
+            warnings.warn(
+                "evaluate(exact=True) gathers scores to one rank and takes one data rank; "
+                "falling back to the streaming histogram AUC, summed over the data group",
+                stacklevel=3,
+            )
+            exact = False
         auc = AUCState.init(device=self.device)
         mloss = MeanState.init(device=self.device)
         acc = MeanState.init(device=self.device)
@@ -270,6 +357,8 @@ class Trainer:
                 "evaluate(): iterator yielded no batches — check that the eval "
                 "set is at least one (drop-remainder) batch long"
             )
+        if self.mesh.data > 1:
+            auc, mloss, acc = self._sum_over_data(auc, mloss, acc)
         out = {
             "eval_auc": float(auc_from_state(auc)),
             "eval_loss": float(mean_from_state(mloss)),
@@ -281,6 +370,14 @@ class Trainer:
                 np.concatenate(all_scores), np.concatenate(all_labels)
             )
         return out
+
+    def _sum_over_data(self, auc: AUCState, mloss: MeanState, acc: MeanState):
+        """The eval metric states summed over the data group (one all-reduce)."""
+        parts = [auc.pos, auc.neg, *(t.reshape(1) for t in (*mloss, *acc))]
+        flat = distributed.all_reduce(torch.cat(parts), group=self.mesh.data_group)
+        bins = auc.pos.numel()
+        pos, neg, rest = flat[:bins], flat[bins:2 * bins], flat[2 * bins:]
+        return AUCState(pos, neg), MeanState(rest[0], rest[1]), MeanState(rest[2], rest[3])
 
     # ------------------------------------------------------------ checkpoints
     def _checkpoints(self) -> list[tuple[int, str]]:
@@ -297,40 +394,90 @@ class Trainer:
                 found.append((int(m.group(1)), os.path.join(root, name)))
         return sorted(found)
 
+    def _sharded_entries(self, state: TrainState):
+        """(state_dict name, optimizer leaf index or None, (first row, whole
+        rows)) of every row-sharded param and its moments."""
+        shards = row_sharded_params(state.model)
+        index = {n: i for i, (n, _) in enumerate(jax_leaf_order(state.model))}
+        return [(name, index[name], rows) for name, rows in shards.items()]
+
     def save(self, state: TrainState) -> str:
         """Write the checkpoint of ``state.step`` (to a temporary name, then
-        renamed) and prune all but the newest ``max_to_keep``."""
+        renamed) and prune all but the newest ``max_to_keep``. Collective on
+        a mesh: every rank calls it; the row shards of data rank 0's model
+        group are gathered into rank 0's host memory (``_whole_rows``),
+        rank 0 writes, and every rank returns once the file is there."""
         kept = self._checkpoints()  # raises without a checkpoint_dir
-        os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
         path = os.path.join(self.cfg.checkpoint_dir, f"step_{state.step}.pt")
-        payload = {
-            "step": state.step,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-        }
-        tmp = f"{path}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        kept = sorted({*kept, (state.step, path)})
-        for _, old in kept[: max(len(kept) - self.cfg.max_to_keep, 0)]:
-            os.remove(old)
+        write = self.mesh.rank == 0
+        if self.mesh.data_index == 0:
+            model_sd = state.model.state_dict()
+            opt = state.optimizer.state_dict()
+            for name, i, _ in self._sharded_entries(state):
+                model_sd[name] = self._whole_rows(model_sd[name])
+                for which in ("mu", "nu"):
+                    opt[which][i] = self._whole_rows(opt[which][i])
+        if write:
+            os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+            tmp = f"{path}.tmp"
+            torch.save({"step": state.step, "model": model_sd, "optimizer": opt}, tmp)
+            os.replace(tmp, path)
+            kept = sorted({*kept, (state.step, path)})
+            for _, old in kept[: max(len(kept) - self.cfg.max_to_keep, 0)]:
+                os.remove(old)
+        distributed.barrier(self.device)
         return path
+
+    def _whole_rows(self, shard: torch.Tensor) -> Optional[torch.Tensor]:
+        """A row shard's whole table in rank 0's host memory (``None`` on
+        the other ranks), gathered over the model group in chunks of at
+        most ``SAVE_CHUNK_BYTES`` a rank, so no device holds more than its
+        shard and one chunk of each rank's."""
+        m, rows = self.mesh.model, shard.shape[0]
+        shard = shard.contiguous()
+        row_bytes = shard[:1].numel() * shard.element_size()
+        chunk = max(1, min(rows, SAVE_CHUNK_BYTES // max(row_bytes, 1)))
+        keep = self.mesh.rank == 0
+        whole = torch.empty((m * rows, *shard.shape[1:]), dtype=shard.dtype) if keep else None
+        buf = torch.empty((m * chunk, *shard.shape[1:]), dtype=shard.dtype, device=shard.device)
+        for a in range(0, rows, chunk):
+            n = min(chunk, rows - a)
+            got = distributed.all_gather_into_tensor(buf[:m * n], shard[a:a + n],
+                                                     group=self.mesh.model_group)
+            if keep:  # block j is model rank j's rows [a, a + n)
+                for j in range(m):
+                    whole[j * rows + a:j * rows + a + n].copy_(got[j * n:(j + 1) * n])
+        return whole
 
     def restore(self, state_like: TrainState) -> TrainState:
         """Load the newest checkpoint into ``state_like``'s model and
         optimizer, in place, and return the state at its step;
-        ``state_like`` unchanged where the directory holds none."""
+        ``state_like`` unchanged where the directory holds none. A row
+        shard takes its rows of the checkpoint's whole table, whatever mesh
+        wrote it."""
         found = self._checkpoints()
         if not found:
             return state_like
         _, path = found[-1]
-        payload = torch.load(path, map_location=self.device, weights_only=True)
-        state_like.model.load_state_dict(payload["model"], strict=True)
-        state_like.optimizer.load_state_dict(payload["optimizer"])
+        # mapped, not read: each rank copies only its rows of a whole table
+        payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        model_sd, opt = payload["model"], payload["optimizer"]
+        own = state_like.model.state_dict()
+        for name, i, (lo, vocab) in self._sharded_entries(state_like):
+            rows = own[name].shape[0]
+            if model_sd[name].shape[0] != vocab:
+                raise ValueError(f"{name}: the checkpoint holds {model_sd[name].shape[0]} rows, "
+                                 f"the table has {vocab}")
+            model_sd[name] = model_sd[name][lo:lo + rows]
+            for which in ("mu", "nu"):
+                opt[which][i] = opt[which][i][lo:lo + rows]
+        state_like.model.load_state_dict(model_sd, strict=True)
+        state_like.optimizer.load_state_dict(opt)
         return dataclasses.replace(state_like, step=int(payload["step"]))
 
     def put_batch(self, batch: dict) -> dict:
-        """Copy a host (numpy) batch to the trainer's device; nested dicts
+        """Copy this rank's rows of the batch (numpy) to the trainer's
+        device; nested dicts
         (a dedup plan, ``batch["cat_dedup"]``) are copied entry by entry."""
         return {
             k: self.put_batch(v) if isinstance(v, dict)
@@ -340,6 +487,7 @@ class Trainer:
 
 
 _CHECKPOINT_NAME = re.compile(r"step_(\d+)\.pt")
+SAVE_CHUNK_BYTES = 64 << 20  # each model rank's rows per gather of a checkpoint
 
 
 def _batch_size(batch: dict) -> int:

@@ -34,6 +34,10 @@ class DCN(nn.Module):
         deep_units: Sequence[int] = (512, 256),
         embed_param_dtype: torch.dtype = torch.float32,
         *,
+        partition: Optional[str] = None,
+        lookup_mode: str = "gspmd",
+        mesh=None,
+        capacity_factor: float = 2.0,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -42,7 +46,8 @@ class DCN(nn.Module):
         self.num_cat = num_cat
         width = num_cat * embed_dim + num_int
         self.embedding = Embedding(
-            vocab_size, embed_dim, param_dtype=embed_param_dtype,
+            vocab_size, embed_dim, param_dtype=embed_param_dtype, partition=partition,
+            lookup_mode=lookup_mode, mesh=mesh, capacity_factor=capacity_factor,
             device=device, generator=generator,
         )
         self.cross = CrossNetwork(width, cross_layers, device=device, generator=generator)

@@ -35,6 +35,10 @@ class DeepFM(nn.Module):
         mlp_units: Sequence[int] = (512, 256, 1),
         embed_param_dtype: torch.dtype = torch.float32,
         *,
+        partition: Optional[str] = None,
+        lookup_mode: str = "gspmd",
+        mesh=None,
+        capacity_factor: float = 2.0,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -42,7 +46,8 @@ class DeepFM(nn.Module):
         self.num_int = num_int
         self.num_cat = num_cat
         self.embedding = Embedding(
-            vocab_size, embed_dim, param_dtype=embed_param_dtype,
+            vocab_size, embed_dim, param_dtype=embed_param_dtype, partition=partition,
+            lookup_mode=lookup_mode, mesh=mesh, capacity_factor=capacity_factor,
             device=device, generator=generator,
         )
         self.mlp = MLP(

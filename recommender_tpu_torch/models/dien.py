@@ -18,8 +18,8 @@ Submodules carry the names of flax's ``setup`` (``local_activation_unit``,
 ``extract_gru``, ``auxiliary_net``, ``attention``, ``evolve``), so
 ``convert.py`` maps a JAX tree one to one.
 
-Not ported yet, and raising ``NotImplementedError``: row-sharded tables
-(``partition``), a ``lookup_mode`` other than the default, and ``mesh``.
+``partition``, ``lookup_mode`` and ``mesh`` go to both tables
+(``embedding.table.Embedding``), as in JAX.
 
 Batch schema (``dien/data_loader.py``): target_item, target_cat,
 pos_his_item, pos_his_cat, [neg_his_item, neg_his_cat], label; histories
@@ -68,22 +68,20 @@ class SequenceBase(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("a mesh (sharded-table exchanges) is not ported yet")
         self.dim = item_dim + cat_dim
         self.shared_gather = shared_gather
         self.item_embedding = Embedding(
-            item_vocab, item_dim, partition=partition, lookup_mode=lookup_mode,
+            item_vocab, item_dim, partition=partition, lookup_mode=lookup_mode, mesh=mesh,
             param_dtype=embed_param_dtype, device=device, generator=generator,
         )
         self.cat_embedding = Embedding(
-            cat_vocab, cat_dim, partition=partition, lookup_mode=lookup_mode,
+            cat_vocab, cat_dim, partition=partition, lookup_mode=lookup_mode, mesh=mesh,
             param_dtype=embed_param_dtype, device=device, generator=generator,
         )
         # head input: [target ∥ history representation]
         self.mlp = MLP(
             self.dim + (self.dim if history_dim is None else history_dim), mlp_units,
-            final_activation=torch.sigmoid, input_batch_norm=True,
+            final_activation=torch.sigmoid, input_batch_norm=True, mesh=mesh,
             device=device, generator=generator,
         )
 

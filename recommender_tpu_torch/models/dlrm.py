@@ -1,8 +1,10 @@
 """DLRM — dense-bottom MLP + embedding table + dot interaction + top MLP.
 
-Port of ``recommender_tpu/models/dlrm.py::DLRM`` (replicated table):
+Port of ``recommender_tpu/models/dlrm.py::DLRM``:
 
-* one shared embedding table over all ``num_cat`` categorical features;
+* one shared embedding table over all ``num_cat`` categorical features,
+  replicated or row-sharded (``partition``, ``lookup_mode``, ``mesh``,
+  ``capacity_factor``: ``embedding.table.Embedding``);
 * bottom MLP on the ``num_int`` dense features, its output used as one more
   feature (so ``bottom_units[-1]`` must equal ``embed_dim``);
 * ``DotInteraction(self_interaction=False, skip_gather=True)`` → dense
@@ -37,6 +39,10 @@ class DLRM(nn.Module):
         top_units: Sequence[int] = (512, 256, 1),
         embed_param_dtype: torch.dtype = torch.float32,
         *,
+        partition: Optional[str] = None,
+        lookup_mode: str = "gspmd",
+        mesh=None,
+        capacity_factor: float = 2.0,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -50,7 +56,8 @@ class DLRM(nn.Module):
         n_feat = num_cat + 1
         # construction order = init order: table, bottom, top
         self.embedding = Embedding(
-            vocab_size, embed_dim, param_dtype=embed_param_dtype,
+            vocab_size, embed_dim, param_dtype=embed_param_dtype, partition=partition,
+            lookup_mode=lookup_mode, mesh=mesh, capacity_factor=capacity_factor,
             device=device, generator=generator,
         )
         self.bottom_mlp = MLP(

@@ -1,6 +1,6 @@
 """Graph item-embedding models: DeepWalk (BGE), GES, EGES.
 
-Port of ``recommender_tpu/models/eges.py`` (replicated tables):
+Port of ``recommender_tpu/models/eges.py``:
 
 * ``DeepWalk`` — input and output tables; logits = context rows · hidden
   (the sampled-softmax dot products);
@@ -14,8 +14,10 @@ kernel (K1), EGES's 3-wide weight table included. Batch schema (from
 (1 positive + k negatives), ``label`` [B, 1+k]; GES and EGES add
 ``target_cat`` / ``target_brand`` [B]. ``get_hidden`` is the item
 representation that link prediction and cold-start inference read.
-Row-sharded tables (``partition``) and the psum / all-to-all exchanges
-(``lookup_mode``) raise ``NotImplementedError`` (``Embedding``).
+``partition``, ``lookup_mode`` and ``mesh`` go to the big id-keyed tables
+(the input or id table and the output table), as in JAX; the side tables
+and EGES's weight table stay replicated, and take ``mesh`` for a data
+axis, whose lookups average every table's gradient.
 """
 from __future__ import annotations
 
@@ -46,10 +48,10 @@ class _GraphModel(nn.Module):
 
 class DeepWalk(_GraphModel):
     def __init__(self, vocab_size: int, embed_dim: int = 128, partition: Optional[str] = None,
-                 lookup_mode: str = "gspmd", *, device=None,
+                 lookup_mode: str = "gspmd", *, mesh=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        big = dict(partition=partition, lookup_mode=lookup_mode)
+        big = dict(partition=partition, lookup_mode=lookup_mode, mesh=mesh)
         self._add_tables([("input_embedding", vocab_size, embed_dim, big),
                           ("output_embedding", vocab_size, embed_dim, big)], device, generator)
 
@@ -59,13 +61,13 @@ class DeepWalk(_GraphModel):
 
 class GES(_GraphModel):
     def __init__(self, vocab_size: int, cat_vocab: int, brand_vocab: int, embed_dim: int = 128,
-                 partition: Optional[str] = None, lookup_mode: str = "gspmd", *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 partition: Optional[str] = None, lookup_mode: str = "gspmd", *, mesh=None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        big = dict(partition=partition, lookup_mode=lookup_mode)
+        big = dict(partition=partition, lookup_mode=lookup_mode, mesh=mesh)
         self._add_tables([("id_embedding", vocab_size, embed_dim, big),
-                          ("cat_embedding", cat_vocab, embed_dim, {}),
-                          ("brand_embedding", brand_vocab, embed_dim, {}),
+                          ("cat_embedding", cat_vocab, embed_dim, dict(mesh=mesh)),
+                          ("brand_embedding", brand_vocab, embed_dim, dict(mesh=mesh)),
                           ("output_embedding", vocab_size, embed_dim, big)], device, generator)
 
     def side_stack(self, batch: dict) -> torch.Tensor:
@@ -83,11 +85,11 @@ class GES(_GraphModel):
 class EGES(GES):
     def __init__(self, vocab_size: int, cat_vocab: int, brand_vocab: int, embed_dim: int = 128,
                  partition: Optional[str] = None, lookup_mode: str = "gspmd",
-                 num_side: int = 3, *, device=None,
+                 num_side: int = 3, *, mesh=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(vocab_size, cat_vocab, brand_vocab, embed_dim, partition, lookup_mode,
-                         device=device, generator=generator)
-        self.weight_embedding = Embedding(vocab_size, num_side, device=device,
+                         mesh=mesh, device=device, generator=generator)
+        self.weight_embedding = Embedding(vocab_size, num_side, mesh=mesh, device=device,
                                           generator=generator)
         self._table_names.append("weight_embedding")
 

@@ -1,12 +1,18 @@
 """Multi-task CTR/CVR models: BASE, ESMM, MMOE (Ali-CCP).
 
-Port of ``recommender_tpu/models/esmm.py`` (replicated tables):
+Port of ``recommender_tpu/models/esmm.py``:
 
 * ``FeatureEmbedder`` — one table per categorical feature (``feat_{j}``),
   concatenated to ``[B, F*D]`` f32; or, with ``stack=True``, all F tables
   as one ``stacked_embedding`` ``[ΣV, D]`` f32 param with feature ``j``'s
   rows at offset ``Σ_{i<j} V_i``: one lookup of ``[B, F]`` shifted ids,
-  whose backward is one sorted scatter-add (K1) call instead of F;
+  whose backward is one sorted scatter-add (K1) call instead of F. Each
+  table's ``partition``, ``lookup_modes`` and ``capacity_factors`` may be
+  one value for all or a tuple per feature (the planner's output,
+  ``embedding.planner.module_kwargs``); a tuple makes the tables separate
+  even with ``stack``. A partitioned table is row-sharded on ``mesh``
+  (``embedding.table.Embedding``); so is the stacked table, whose lookup
+  is then the psum exchange;
 * ``MultiTaskBase`` — embedder → MLP with a 2-unit softmax head, the
   probability of class 1 (one model of the two-model BASE protocol);
 * ``ESMM`` — shared embedder, CTR and CVR towers, pCTCVR = pCTR · pCVR;
@@ -21,26 +27,25 @@ experts/Dense_i``, ``gate_{i}``, ``tower_{i}``; ``FeatureEmbedder_0`` and
 onto ``state_dict()`` directly.
 
 Batch schema: ``features`` [B, F] int32, labels ``click`` / ``purchase``
-[B]. Row-sharded tables (``partition``), the psum / all-to-all exchanges
-(``lookup_modes``) and per-feature policy tuples belong to the sharded-table
-slice and raise ``NotImplementedError``.
+[B].
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from recommender_tpu_torch.embedding.table import Embedding
+from recommender_tpu_torch.embedding.sharded import (
+    data_parallel_lookup,
+    shard_rows,
+    sharded_lookup,
+)
+from recommender_tpu_torch.embedding.table import Embedding, init_rows
 from recommender_tpu_torch.nn.mlp import MLP
 from recommender_tpu_torch.nn.moe import ExpertBank, MMOEGate
 from recommender_tpu_torch.ops.embedding_kernels import embedding_lookup
-
-_SHARDED = "the sharded-table slice (row-sharded tables and their exchanges) is not ported yet"
-
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=-1)
@@ -50,42 +55,60 @@ class FeatureEmbedder(nn.Module):
     """Per-feature embedding tables → concatenated ``[B, F*D]`` f32.
 
     ``stack=True`` keeps one f32 ``stacked_embedding`` (bf16 with ``stack``
-    raises, as in JAX). Each feature's ids are clipped into its own segment
-    before its offset is added, so an out-of-range id lands on its own
-    table's last row, not on the next feature's rows."""
+    raises, as in JAX; so does a lookup mode other than ``gspmd``). Each
+    feature's ids are clipped into its own segment before its offset is
+    added, so an out-of-range id lands on its own table's last row, not on
+    the next feature's rows."""
 
     def __init__(
         self,
         vocab_sizes: Sequence[int],
         embed_dim: int = 18,
-        partition: Optional[str] = None,
+        partition: Optional[str] | Sequence[Optional[str]] = None,
         stack: bool = False,
-        lookup_modes: str = "gspmd",
+        lookup_modes: str | Sequence[str] = "gspmd",
         param_dtype: torch.dtype = torch.float32,
         *,
+        capacity_factors: float | Sequence[float] = 2.0,
+        mesh=None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if partition is not None or not isinstance(lookup_modes, str):
-            raise NotImplementedError(f"partition / per-feature lookup policies: {_SHARDED}")
-        if lookup_modes != "gspmd":
-            raise NotImplementedError(f"lookup_modes={lookup_modes!r}: {_SHARDED}")
         self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
         self.embed_dim = embed_dim
-        self.stack = stack
-        if not stack:
+        per_table = any(isinstance(v, (list, tuple))
+                        for v in (partition, lookup_modes, capacity_factors))
+        self.stack = stack and not per_table
+        if not self.stack:
+            parts, modes, caps = (self._per_feat(v)
+                                  for v in (partition, lookup_modes, capacity_factors))
             for j, v in enumerate(self.vocab_sizes):
                 self.add_module(f"feat_{j}", Embedding(
-                    v, embed_dim, param_dtype=param_dtype, device=device, generator=generator))
+                    v, embed_dim, partition=parts[j], lookup_mode=modes[j],
+                    capacity_factor=float(caps[j]), mesh=mesh, param_dtype=param_dtype,
+                    device=device, generator=generator))
             return
+        if lookup_modes != "gspmd":
+            raise ValueError(
+                "stacked tables support only the gspmd lookup; use per-table mode "
+                f"(stack=False) for lookup_modes={lookup_modes!r}"
+            )
         if param_dtype != torch.float32:
             raise ValueError(
                 "stacked tables are f32-only; use per-table mode (stack=False) for "
                 f"param_dtype={param_dtype}"
             )
+        total = sum(self.vocab_sizes)
+        self.partition, self.mesh = partition, mesh
+        self.sharded = partition == "model" and mesh is not None and mesh.model > 1
+        rows = shard_rows(total, mesh) if self.sharded else total
+        self.row_shards = (
+            {"stacked_embedding": (mesh.model_index * rows, total)} if self.sharded else {})
+        self.data_gathered = (
+            {"stacked_embedding"} if mesh is not None and mesh.data > 1 else set())
         self.stacked_embedding = nn.Parameter(
-            torch.empty((sum(self.vocab_sizes), embed_dim), dtype=torch.float32, device=device)
+            torch.empty((rows, embed_dim), dtype=torch.float32, device=device)
         )
         # not in the state_dict: they follow from vocab_sizes
         sizes = np.asarray(self.vocab_sizes)
@@ -95,18 +118,27 @@ class FeatureEmbedder(nn.Module):
             sizes - 1, dtype=torch.int32, device=device), persistent=False)
         self.reset_parameters(generator)
 
+    def _per_feat(self, v) -> tuple:
+        n = len(self.vocab_sizes)
+        if isinstance(v, (list, tuple)):
+            if len(v) != n:
+                raise ValueError(f"{len(v)} per-feature values for {n} features")
+            return tuple(v)
+        return (v,) * n
+
     def tables(self) -> list[Embedding]:
         return [getattr(self, f"feat_{j}") for j in range(len(self.vocab_sizes))]
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Each table's (each segment's) flax init: U(-√(3/D), √(3/D))."""
+        """Each table's (each segment's) flax init: U(-√(3/D), √(3/D)),
+        drawn over the whole stacked table; a shard keeps its rows."""
         if not self.stack:
             for table in self.tables():
                 table.reset_parameters(generator)
             return
-        bound = math.sqrt(3.0 / self.embed_dim)
-        self.stacked_embedding.uniform_(-bound, bound, generator=generator)
+        lo = self.row_shards.get("stacked_embedding", (0, 0))[0]
+        init_rows(self.stacked_embedding.data, sum(self.vocab_sizes), lo, generator)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         if not self.stack:
@@ -116,7 +148,12 @@ class FeatureEmbedder(nn.Module):
             return torch.cat(cols, dim=-1).to(torch.float32)
         local = torch.minimum(torch.clamp(features, min=0), self._maxima)
         ids = (local + self._offsets).to(features.dtype)  # [B, F] global rows
-        emb = embedding_lookup(self.stacked_embedding, ids)
+        if self.sharded:
+            emb = sharded_lookup(self.stacked_embedding, ids, self.mesh)
+        elif self.data_gathered:
+            emb = data_parallel_lookup(self.stacked_embedding, ids, self.mesh)
+        else:
+            emb = embedding_lookup(self.stacked_embedding, ids)
         return emb.reshape(features.shape[0], len(self.vocab_sizes) * self.embed_dim)
 
 
@@ -128,18 +165,20 @@ class MultiTaskBase(nn.Module):
         vocab_sizes: Sequence[int],
         embed_dim: int = 18,
         mlp_units: Sequence[int] = (360, 200, 80, 2),
-        partition: Optional[str] = None,
+        partition: Optional[str] | Sequence[Optional[str]] = None,
         stack_tables: bool = False,
-        lookup_modes: str = "gspmd",
+        lookup_modes: str | Sequence[str] = "gspmd",
         embed_param_dtype: torch.dtype = torch.float32,
         *,
+        capacity_factors: float | Sequence[float] = 2.0,
+        mesh=None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.FeatureEmbedder_0 = FeatureEmbedder(
             vocab_sizes, embed_dim, partition, stack_tables, lookup_modes, embed_param_dtype,
-            device=device, generator=generator)
+            capacity_factors=capacity_factors, mesh=mesh, device=device, generator=generator)
         self.MLP_0 = MLP(len(vocab_sizes) * embed_dim, mlp_units, final_activation=_softmax,
                          device=device, generator=generator)
 
@@ -160,18 +199,20 @@ class ESMM(nn.Module):
         vocab_sizes: Sequence[int],
         embed_dim: int = 18,
         mlp_units: Sequence[int] = (360, 200, 80, 1),
-        partition: Optional[str] = None,
+        partition: Optional[str] | Sequence[Optional[str]] = None,
         stack_tables: bool = False,
-        lookup_modes: str = "gspmd",
+        lookup_modes: str | Sequence[str] = "gspmd",
         embed_param_dtype: torch.dtype = torch.float32,
         *,
+        capacity_factors: float | Sequence[float] = 2.0,
+        mesh=None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.embedder = FeatureEmbedder(
             vocab_sizes, embed_dim, partition, stack_tables, lookup_modes, embed_param_dtype,
-            device=device, generator=generator)
+            capacity_factors=capacity_factors, mesh=mesh, device=device, generator=generator)
         width = len(vocab_sizes) * embed_dim
         self.ctr_tower = MLP(width, mlp_units, final_activation=torch.sigmoid,
                              device=device, generator=generator)
@@ -200,11 +241,13 @@ class MMOE(nn.Module):
         num_experts: int = 8,
         expert_units: Sequence[int] = (200, 80),
         tower_units: Sequence[int] = (40, 1),
-        partition: Optional[str] = None,
+        partition: Optional[str] | Sequence[Optional[str]] = None,
         stack_tables: bool = False,
-        lookup_modes: str = "gspmd",
+        lookup_modes: str | Sequence[str] = "gspmd",
         embed_param_dtype: torch.dtype = torch.float32,
         *,
+        capacity_factors: float | Sequence[float] = 2.0,
+        mesh=None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -212,7 +255,7 @@ class MMOE(nn.Module):
         self.num_tasks = num_tasks
         self.embedder = FeatureEmbedder(
             vocab_sizes, embed_dim, partition, stack_tables, lookup_modes, embed_param_dtype,
-            device=device, generator=generator)
+            capacity_factors=capacity_factors, mesh=mesh, device=device, generator=generator)
         width = len(vocab_sizes) * embed_dim
         self.expert_bank = ExpertBank(num_experts, width, expert_units, device=device,
                                       generator=generator)

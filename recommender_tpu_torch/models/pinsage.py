@@ -24,9 +24,10 @@ K1 four times (two lookups into each of the two tables).
 
 Batch schema: the dense ``BlockBatch`` tree of
 ``graph.bipartite.sample_block_batch`` (``nodes``, ``nbr1``, ``w1``,
-``flat1``, ``nbr2``, ``w2``). Row-sharded tables (``partition``) and the
-psum / all-to-all exchanges (``lookup_mode``) raise ``NotImplementedError``
-(``Embedding``).
+``flat1``, ``nbr2``, ``w2``). ``partition``, ``lookup_mode`` and ``mesh``
+go to the item id table (``embedding.table.Embedding``), as in JAX; the
+year table stays replicated, and takes ``mesh`` for a data axis, whose
+lookups average every table's gradient.
 """
 from __future__ import annotations
 
@@ -71,17 +72,18 @@ def _reset_dense(layer: nn.Linear, generator):
 class FeatureProjector(nn.Module):
     def __init__(self, features: ItemFeatures, embed_dim: int = 8,
                  partition: Optional[str] = None, lookup_mode: str = "gspmd", *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 mesh=None, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         year_vocab = int(features.year.max()) + 1
         num_genres = features.genre.shape[1]
         self.embed_dim = embed_dim
-        self.year = Embedding(year_vocab, embed_dim, device=device, generator=generator)
+        self.year = Embedding(year_vocab, embed_dim, mesh=mesh, device=device, generator=generator)
         self.genre_embedding = nn.Parameter(
             torch.empty((num_genres, embed_dim), dtype=torch.float32, device=device)
         )
         self.id = Embedding(features.num_items, embed_dim, partition=partition,
-                            lookup_mode=lookup_mode, device=device, generator=generator)
+                            lookup_mode=lookup_mode, mesh=mesh, device=device,
+                            generator=generator)
         self.register_buffer("item_year", torch.as_tensor(
             np.asarray(features.year, np.int64), device=device), persistent=False)
         self.register_buffer("item_genre", torch.as_tensor(
@@ -140,14 +142,14 @@ class Convolve(nn.Module):
 class PinSage(nn.Module):
     def __init__(self, features: ItemFeatures, embed_dim: int = 8, conv_hidden: int = 64,
                  conv_out: int = 32, num_layers: int = 2, partition: Optional[str] = None,
-                 lookup_mode: str = "gspmd", *, device=None,
+                 lookup_mode: str = "gspmd", *, mesh=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if num_layers != 2:
             # get_repr is the dense two-layer tree of BlockBatch
             raise ValueError(f"num_layers must be 2 (the block tree's depth), got {num_layers}")
         self.projector = FeatureProjector(features, embed_dim, partition=partition,
-                                          lookup_mode=lookup_mode, device=device,
+                                          lookup_mode=lookup_mode, mesh=mesh, device=device,
                                           generator=generator)
         kw = dict(device=device, generator=generator)
         self.conv_0 = Convolve(3 * embed_dim, conv_hidden, conv_out, **kw)

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from recommender_tpu_torch.graph.bipartite import BipartiteGraph, sample_block_batch
+from recommender_tpu_torch.models.tasks import pop_diagnostics
 from recommender_tpu_torch.nn.losses import margin_loss
 
 
@@ -63,6 +64,6 @@ def make_pinsage_task(model: nn.Module, delta: float = 1.0):
             "pos_score": torch.mean(pos_score.detach()),
             "neg_score": torch.mean(neg_score.detach()),
         }
-        return per_ex, aux
+        return per_ex, pop_diagnostics(model, aux)
 
     return loss_fn

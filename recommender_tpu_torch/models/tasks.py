@@ -3,9 +3,9 @@
 Port of ``recommender_tpu/models/tasks.py`` (``init_model``,
 ``make_ctr_task``, ``make_aux_loss_task``, ``make_multitask_task``,
 ``make_head_eval``, ``evaluate_head``, ``make_skipgram_task``,
-``link_prediction_auc``). The JAX functions take ``(params, model_state, batch,
-rng, train)``; a torch module holds its own parameters, and its mutable
-state (BatchNorm's running stats, flax's ``batch_stats``) as buffers that
+``link_prediction_auc``, and ``pop_diagnostics`` for ``_pop_diagnostics``).
+The JAX functions take ``(params, model_state, batch, rng, train)``; a
+torch module holds its own parameters, and its mutable state (BatchNorm's running stats, flax's ``batch_stats``) as buffers that
 its forward updates in ``train()`` mode. The models of the port use no
 randomness at train time, so here
 
@@ -22,8 +22,26 @@ import numpy as np
 import torch
 from torch import nn
 
+from recommender_tpu_torch.core import distributed
 from recommender_tpu_torch.core.metrics import AUCState, auc_from_state, auc_update, exact_auc
 from recommender_tpu_torch.nn.losses import bce_with_logits, binary_cross_entropy
+
+
+def pop_diagnostics(model: nn.Module, aux: dict) -> dict:
+    """Move the diagnostics a training forward left on the model's tables
+    into the step's metrics: ``a2a_overflow``, the ids served a 0 vector by
+    the all-to-all exchange, summed over the tables that take it (JAX's
+    sown ``diagnostics`` collection). ``aux`` is unchanged where no table
+    takes that exchange."""
+    total = None
+    for module in model.modules():
+        dropped = getattr(module, "a2a_overflow", None)
+        if dropped is not None:
+            total = dropped if total is None else total + dropped
+            module.a2a_overflow = None
+    if total is not None:
+        aux["a2a_overflow"] = total
+    return aux
 
 
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -47,7 +65,7 @@ def make_ctr_task(model: nn.Module) -> tuple[Callable, Callable]:
         prob = model(batch)
         per_ex = binary_cross_entropy(prob, batch["label"])
         aux = {"prob_mean": torch.mean(prob.detach())}
-        return per_ex, aux
+        return per_ex, pop_diagnostics(model, aux)
 
     def eval_fn(batch):
         model.eval()
@@ -64,7 +82,7 @@ def make_aux_loss_task(model: nn.Module, aux_weight: float = 1.0) -> tuple[Calla
         model.train(train)
         prob, aux_loss = model(batch)
         per_ex = binary_cross_entropy(prob, batch["label"]) + aux_weight * aux_loss
-        return per_ex, {"aux_loss": torch.mean(aux_loss.detach())}
+        return per_ex, pop_diagnostics(model, {"aux_loss": torch.mean(aux_loss.detach())})
 
     def eval_fn(batch):
         model.eval()
@@ -85,7 +103,7 @@ def make_multitask_task(model: nn.Module) -> tuple[Callable, Callable]:
         l_ctcvr = binary_cross_entropy(heads["ctcvr"], batch["purchase"])
         aux = {"ctr_loss": torch.mean(l_ctr.detach()),
                "ctcvr_loss": torch.mean(l_ctcvr.detach())}
-        return 0.5 * (l_ctr + l_ctcvr), aux
+        return 0.5 * (l_ctr + l_ctcvr), pop_diagnostics(model, aux)
 
     def eval_fn(batch):
         model.eval()
@@ -109,10 +127,12 @@ def make_head_eval(model: nn.Module, head: str, label_key: str) -> Callable:
 def evaluate_head(trainer, state, batches: Iterable, head_eval_fn: Callable,
                   exact: bool = False) -> float:
     """One AUC over ``batches`` with a custom ``(scores, labels)`` fn: the
-    streaming histogram on the device, or with ``exact=True`` the sort-based
-    exact AUC of the scores gathered to the host. ``state`` is unused (the
-    model holds its params); it stays for the JAX signature."""
+    streaming histogram on the device, summed over the trainer's data
+    group, or with ``exact=True`` (one data rank) the sort-based exact AUC
+    of the scores gathered to the host. ``state`` is unused (the model holds
+    its params); it stays for the JAX signature."""
     del state
+    mesh = trainer.mesh
     auc = AUCState.init(device=trainer.device)
     all_s, all_l = [], []
     for batch in batches:
@@ -121,8 +141,11 @@ def evaluate_head(trainer, state, batches: Iterable, head_eval_fn: Callable,
         if exact:
             all_s.append(scores.reshape(-1).cpu().numpy())
             all_l.append(labels.reshape(-1).cpu().numpy())
-    if exact:
+    if exact and mesh.data == 1:
         return float(exact_auc(np.concatenate(all_s), np.concatenate(all_l)))
+    if mesh.data > 1:
+        both = distributed.all_reduce(torch.cat([auc.pos, auc.neg]), group=mesh.data_group)
+        auc = AUCState(*both.chunk(2))
     return float(auc_from_state(auc))
 
 
@@ -135,7 +158,8 @@ def make_skipgram_task(model: nn.Module) -> tuple[Callable, Callable]:
     def loss_fn(batch, train):
         model.train(train)
         logits = model(batch)
-        return torch.mean(bce_with_logits(logits, batch["label"]), dim=-1), {}
+        per_ex = torch.mean(bce_with_logits(logits, batch["label"]), dim=-1)
+        return per_ex, pop_diagnostics(model, {})
 
     def eval_fn(batch):
         model.eval()

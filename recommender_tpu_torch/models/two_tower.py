@@ -11,11 +11,19 @@ The item tower exports a corpus exactly like PinSage's reprs
 (``corpus_item_reprs`` → ``retrieval.export``), and the user tower gives
 the query vectors (``retrieval.eval.recommend_topk_from_queries``).
 
-Loss: softmax cross-entropy on the [B, B] similarity matrix of the batch
-on this device, the diagonal as labels, temperature-scaled; per example.
-The JAX package's data-parallel run draws its negatives from the global
-batch (XLA all-gathers the item reprs); with one device the two agree, and
-the cross-device gather comes with the distribution slice.
+Loss: softmax cross-entropy on the similarity matrix of the user reprs
+against every item repr of the global batch, the matching item as the
+label, temperature-scaled; per example. The JAX package's data-parallel
+run gets the global batch's item reprs from XLA's all-gather; here, on a
+mesh with a data axis wider than 1, ``make_two_tower_task`` all-gathers
+them over the data group explicitly (``_GatherRows``, whose backward is a
+reduce-scatter sum of the cotangent), so rank ``r``'s logits are
+``[B_local, B_global]`` with its labels at ``r * B_local + i``. N ranks of
+``B/N`` rows give one rank's loss and gradients at ``B``
+(``tests/test_torch_two_tower.py``).
+
+``partition``, ``lookup_mode``, ``mesh`` and ``capacity_factor`` go to the
+three tables (``embedding.table.Embedding``).
 """
 from __future__ import annotations
 
@@ -25,7 +33,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from recommender_tpu_torch.core import distributed
 from recommender_tpu_torch.embedding.table import Embedding
+from recommender_tpu_torch.models.tasks import pop_diagnostics
 from recommender_tpu_torch.nn.mlp import MLP
 
 
@@ -33,13 +43,16 @@ class TwoTower(nn.Module):
     def __init__(self, user_vocab: int, item_vocab: int, cat_vocab: int = 0,
                  embed_dim: int = 32, repr_dim: int = 32, tower_units: Sequence[int] = (64,),
                  temperature: float = 0.05, partition: Optional[str] = None,
-                 lookup_mode: str = "gspmd", embed_param_dtype: torch.dtype = torch.float32, *,
+                 lookup_mode: str = "gspmd", embed_param_dtype: torch.dtype = torch.float32,
+                 mesh=None, capacity_factor: float = 2.0, *,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cat_vocab = cat_vocab
         self.temperature = temperature
+        self.mesh = mesh
         kw = dict(partition=partition, lookup_mode=lookup_mode, param_dtype=embed_param_dtype,
-                  device=device, generator=generator)
+                  mesh=mesh, capacity_factor=capacity_factor, device=device,
+                  generator=generator)
         self.user_embedding = Embedding(user_vocab, embed_dim, **kw)
         self.item_embedding = Embedding(item_vocab, embed_dim, **kw)
         if cat_vocab:
@@ -79,28 +92,53 @@ class TwoTower(nn.Module):
                                                                 batch.get("item_cat"))
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every data rank's rows, concatenated in data order; the backward
+    sums the cotangent over the ranks and keeps this rank's block (a
+    reduce-scatter), since each rank's loss reads every rank's rows."""
+
+    @staticmethod
+    def forward(ctx, rows, group, n):
+        ctx.group, ctx.n = group, n
+        out = torch.empty((rows.shape[0] * n, *rows.shape[1:]), dtype=rows.dtype,
+                          device=rows.device)
+        return distributed.all_gather_into_tensor(out, rows.contiguous(), group=group)
+
+    @staticmethod
+    def backward(ctx, cot):
+        out = torch.empty((cot.shape[0] // ctx.n, *cot.shape[1:]), dtype=cot.dtype,
+                          device=cot.device)
+        return distributed.reduce_scatter_tensor(out, cot.contiguous(), group=ctx.group), None, None
+
+
 def make_two_tower_task(model: TwoTower):
-    """(loss_fn, eval_fn) for the Trainer: in-batch softmax CE.
+    """(loss_fn, eval_fn) for the Trainer: in-batch softmax CE against the
+    global batch's items (module docstring).
 
     eval_fn returns (diagonal-is-top1 indicator, ones) — an in-batch
     retrieval accuracy proxy for train-time monitoring; certified quality
     uses the full-corpus hit-rate protocol (``retrieval.eval``) offline."""
+    mesh = model.mesh
 
-    def logits_of(batch, train):
+    def logits_and_labels(batch, train):
         model.train(train)
         u, v = model(batch)
-        return (u @ v.T) / model.temperature  # [B, B]
+        first = 0
+        if mesh is not None and mesh.data > 1:
+            v = _GatherRows.apply(v, mesh.data_group, mesh.data)
+            first = mesh.data_index * u.shape[0]
+        labels = torch.arange(first, first + u.shape[0], device=u.device)
+        return (u @ v.T) / model.temperature, labels  # [B_local, B_global]
 
     def loss_fn(batch, train):
-        logits = logits_of(batch, train)
-        labels = torch.arange(logits.shape[0], device=logits.device)
-        per_ex = -torch.log_softmax(logits, dim=-1)[labels, labels]
+        logits, labels = logits_and_labels(batch, train)
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        per_ex = -torch.log_softmax(logits, dim=-1)[rows, labels]
         top1 = torch.mean((torch.argmax(logits.detach(), dim=-1) == labels).to(torch.float32))
-        return per_ex, {"inbatch_top1": top1}
+        return per_ex, pop_diagnostics(model, {"inbatch_top1": top1})
 
     def eval_fn(batch):
-        logits = logits_of(batch, False)
-        labels = torch.arange(logits.shape[0], device=logits.device)
+        logits, labels = logits_and_labels(batch, False)
         hit = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
         return hit, torch.ones_like(hit)
 

@@ -11,6 +11,9 @@ Layers are named ``Dense_0 … Dense_{n-1}`` like the flax submodules, so
 ``input_batch_norm=True`` puts ``BatchNorm_0`` before the first layer: flax
 ``nn.BatchNorm(use_running_average=not train, dtype=float32)`` semantics,
 which differ from ``torch.nn.BatchNorm1d``'s defaults (see ``BatchNorm``).
+On a ``mesh`` with a data axis wider than 1 its batch statistics are the
+global batch's, summed over the data group, as JAX's are over a
+data-sharded batch.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from recommender_tpu_torch.core.distributed import sum_over_group
 
 _TRUNC_NORMAL_STD = 0.87962566103423978  # std of N(0,1) truncated to [-2, 2]
 
@@ -45,12 +50,18 @@ class BatchNorm(nn.Module):
 
     ``weight``/``bias`` are flax's ``scale``/``bias`` params; the running
     stats are the buffers ``mean`` and ``var``, flax's ``batch_stats``
-    entries of the same names (``convert.py`` loads them)."""
+    entries of the same names (``convert.py`` loads them).
+
+    ``mesh`` with a data axis wider than 1: the batch statistics are the
+    global batch's, the sums of ``x`` and ``x²`` summed over the data group
+    (a differentiable all-reduce); every rank feeds equal rows."""
 
     def __init__(
-        self, num_features: int, momentum: float = 0.99, epsilon: float = 1e-5, *, device=None
+        self, num_features: int, momentum: float = 0.99, epsilon: float = 1e-5, *,
+        mesh=None, device=None
     ):
         super().__init__()
+        self.mesh = mesh
         self.momentum = momentum
         self.epsilon = epsilon
         f32 = dict(dtype=torch.float32, device=device)
@@ -71,8 +82,13 @@ class BatchNorm(nn.Module):
         x = x.to(torch.float32)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            if self.mesh is not None and self.mesh.data > 1:
+                sums = torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)])
+                sums = sum_over_group(sums, self.mesh.data_group)
+                mean, mean_sq = (sums / (x[..., 0].numel() * self.mesh.data)).chunk(2)
+            else:
+                mean, mean_sq = x.mean(dim=axes), (x * x).mean(dim=axes)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -98,6 +114,7 @@ class MLP(nn.Module):
         input_batch_norm: bool = False,
         compute_dtype: torch.dtype = torch.bfloat16,
         *,
+        mesh=None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -110,7 +127,7 @@ class MLP(nn.Module):
         prev = in_features
         device = torch.device("cpu") if device is None else device
         if input_batch_norm:
-            self.BatchNorm_0 = BatchNorm(in_features, device=device)
+            self.BatchNorm_0 = BatchNorm(in_features, mesh=mesh, device=device)
         for i, unit in enumerate(self.units):
             # allocated uninitialized; reset_parameters draws the flax init
             layer = nn.utils.skip_init(

@@ -70,17 +70,20 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + (hi << 16)) & _M32
 
 
-def _hash_noise_u16(shape, key: Key, device=None) -> torch.Tensor:
+def _hash_noise_u16(shape, key: Key, device=None, offset: int = 0) -> torch.Tensor:
     """Uniform 16-bit noise (int64 values in [0, 2^16)): the murmur3
     finalizer over (element index ⊕ key words), deterministic per
     (key, element index). Same bits as the JAX function for the same key
-    words."""
+    words. The element indices start at ``offset``: a row shard of a
+    table passes its first element's index in the whole table, so it draws
+    the whole table's noise for its elements, as a row-sharded array does
+    under JAX."""
     shape = tuple(shape)
     n = 1
     for s in shape:
         n *= int(s)
     k0, k1 = key
-    x = torch.arange(n, dtype=torch.int64, device=device)
+    x = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     x = (_mul32(x, 0x9E3779B9) + k0) & _M32
     x = x ^ k1
     x = x ^ (x >> 16)
@@ -91,17 +94,18 @@ def _hash_noise_u16(shape, key: Key, device=None) -> torch.Tensor:
     return (x & 0xFFFF).reshape(shape)
 
 
-def stochastic_round_to(x: torch.Tensor, dtype, key: Key) -> torch.Tensor:
+def stochastic_round_to(x: torch.Tensor, dtype, key: Key, offset: int = 0) -> torch.Tensor:
     """Round ``x`` to ``dtype`` stochastically (unbiased); identity cast for
     f32/f64 targets. Only bfloat16 is supported as a low-precision target
-    (it is the truncation of f32; f16 is not)."""
+    (it is the truncation of f32; f16 is not). ``offset``: the flat index
+    of ``x``'s first element in the array it is a row shard of."""
     if dtype != torch.bfloat16:
         if dtype in (torch.float32, torch.float64):
             return x.to(dtype)
         raise ValueError(f"stochastic_round_to: unsupported target {dtype}")
     x = x.to(torch.float32).contiguous()
     bits = x.view(torch.int32).to(torch.int64) & _M32
-    noise = _hash_noise_u16(x.shape, key, device=x.device)
+    noise = _hash_noise_u16(x.shape, key, device=x.device, offset=offset)
     hi = ((bits + noise) & _M32) >> 16
     # Non-finite values bypass the add. The result is assembled as bf16 bits
     # rather than cast, because torch's f32→bf16 cast writes NaN as 0xFFFF

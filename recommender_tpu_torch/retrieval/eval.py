@@ -1,6 +1,6 @@
 """Retrieval: full-corpus inference, top-k recommendation, hit-rate.
 
-Port of ``recommender_tpu/retrieval/eval.py``, for one device:
+Port of ``recommender_tpu/retrieval/eval.py``:
 
 * ``full_corpus_reprs``  — every item id through sampled blocks → reprs
   (the model's eval forward under ``torch.no_grad``, on its device);
@@ -12,9 +12,11 @@ Port of ``recommender_tpu/retrieval/eval.py``, for one device:
   (the two-tower user reprs);
 * ``hit_rate``           — any-hit mean over users.
 
-``mesh=`` (the JAX package's data-parallel serving) raises until the
-distribution slice; ``exact=False`` takes the exact reduction
-(``PARITY.md``). Array inputs may be numpy or tensors: the scoring runs on
+``mesh=`` is data-parallel serving, as in JAX: each data rank computes its
+share of every batch's rows (the corpus blocks' nodes, or the scoring
+batch's users) and the shares are all-gathered over the data group, so
+every rank returns the whole result. ``exact=False`` takes the exact
+reduction (``PARITY.md``). Array inputs may be numpy or tensors: the scoring runs on
 the device of ``item_reprs`` when it is a tensor, else on ``device``
 (the CPU by default).
 """
@@ -23,9 +25,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from recommender_tpu_torch.core import distributed
 from recommender_tpu_torch.retrieval.quantize import _tensor, seen_tensor, topk_unseen
 
-_MESH = "mesh= (data-parallel serving) comes with the distribution slice"
+
+def _gather_data(part: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's ``part`` (equal shapes), concatenated in data order."""
+    whole = torch.empty((part.shape[0] * mesh.data, *part.shape[1:]), dtype=part.dtype,
+                        device=part.device)
+    return distributed.all_gather_into_tensor(whole, part.contiguous(), group=mesh.data_group)
+
+
+def _data_rows(n: int, mesh) -> slice:
+    """This data rank's share of ``n`` rows (``n`` divisible by the axis)."""
+    share = n // mesh.data
+    return slice(mesh.data_index * share, (mesh.data_index + 1) * share)
 
 
 def full_corpus_reprs(
@@ -33,11 +47,17 @@ def full_corpus_reprs(
 ) -> np.ndarray:
     """Compute reprs for every item (PinSage: fresh sampled blocks per
     batch; the last batch padded with item 0 to ``batch_size``, as in JAX,
-    so the same ``rng`` draws the same blocks)."""
+    so the same ``rng`` draws the same blocks). ``mesh``: each data rank
+    takes its share of each batch's nodes (``batch_size`` divisible by the
+    data axis); every rank draws the same blocks from the same ``rng``."""
     from recommender_tpu_torch.graph.bipartite import sample_block_batch
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    sharded = mesh is not None and mesh.data > 1
+    if sharded and batch_size % mesh.data:
+        raise ValueError(
+            f"batch_size {batch_size} must divide by the data axis ({mesh.data}) for "
+            "sharded corpus inference"
+        )
     device = next(model.parameters()).device
     model.eval()
     out = []
@@ -49,8 +69,13 @@ def full_corpus_reprs(
             if pad:
                 ids = np.concatenate([ids, np.zeros(pad, np.int32)])
             block = sample_block_batch(graph, ids, rng, **sampler_kw).as_dict()
+            if sharded:  # every leaf's leading dim is a multiple of the nodes
+                block = {k: v[_data_rows(len(v), mesh)] for k, v in block.items()}
             block = {k: torch.as_tensor(v, device=device) for k, v in block.items()}
-            out.append(model.get_repr(block).cpu().numpy()[: batch_size - pad])
+            reprs = model.get_repr(block)
+            if sharded:
+                reprs = _gather_data(reprs, mesh)
+            out.append(reprs.cpu().numpy()[: batch_size - pad])
     return np.concatenate(out, axis=0)
 
 
@@ -126,9 +151,9 @@ def recommend_topk_from_queries(
     general form behind ``recommend_topk``, used directly by dual-encoder
     retrieval (the two-tower user reprs). Same ``seen`` contract; with id
     lists, when fewer than k unseen candidates exist the tail degrades to
-    seen ids."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    seen ids. ``mesh``: each data rank scores its share of each batch's
+    users (the tail batch padded with its last user to divide evenly)."""
+    sharded = mesh is not None and mesh.data > 1
     if torch.is_tensor(item_reprs):
         device = item_reprs.device
     device = torch.device(device or "cpu")
@@ -137,10 +162,16 @@ def recommend_topk_from_queries(
     out = []
     U = len(query_reprs)
     for s in range(0, U, batch_size):
-        users = slice(s, min(s + batch_size, U))
+        users = np.arange(s, min(s + batch_size, U))
+        n_real = len(users)
+        if sharded:
+            users = np.concatenate([users, np.full(-n_real % mesh.data, users[-1])])
+            users = users[_data_rows(len(users), mesh)]
         q = _tensor(query_reprs[users], device, torch.float32)
         idx = topk_unseen(lambda a, b: q @ items[a:b].T, items.shape[0], len(q),
                           seen_tensor(seen[users], id_lists, device), k, id_lists)
+        if sharded:
+            idx = _gather_data(idx, mesh)[:n_real]
         out.append(idx.to(torch.int32).cpu().numpy())
     return np.concatenate(out, axis=0)
 

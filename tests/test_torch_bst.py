@@ -41,6 +41,7 @@ from recommender_tpu.models.tasks import make_ctr_task as jax_make_ctr_task
 from recommender_tpu.nn.losses import binary_cross_entropy as jax_bce
 from recommender_tpu.nn.transformer import TransformerBlock as JaxTransformerBlock
 from recommender_tpu_torch.convert import flax_to_state_dict, jax_leaf_order, load_flax_params
+from recommender_tpu_torch.core.mesh import Mesh
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 from recommender_tpu_torch.data import SyntheticSequence, batch_iterator
 from recommender_tpu_torch.models import BST, init_model, make_ctr_task
@@ -244,12 +245,16 @@ def test_history_longer_than_the_position_table_raises():
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [dict(lookup_mode="a2a"), dict(partition="model"), dict(lookup_mode="psum"),
-     dict(mesh=object())],
+    "kw,error",
+    [(dict(lookup_mode="ring"), ValueError), (dict(partition="data"), ValueError),
+     (dict(partition="model", mesh=Mesh(1, 3)), ValueError), (dict(mesh=object()), TypeError)],
+    ids=["kw0", "kw1", "kw2", "kw3"],
 )
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(kw, error):
+    """The sharded-table options are ported (``tests/test_torch_sharded.py``);
+    what JAX has no counterpart of is refused: an unknown exchange or axis,
+    a vocabulary the model axis does not divide, a mesh that is not one."""
+    with pytest.raises(error):
         BST(**SMALL, **kw)
 
 

@@ -1,8 +1,8 @@
 """The port's ``cli.train_dien`` entry point on the CPU: the four model
 types on synthetic data, bf16 tables, the file path on a TSV fixture,
 ``--resume`` (bit for bit against the straight run), the TensorBoard flag,
-``--device``, every refused flag, and that no file of the port imports jax
-or the JAX package."""
+``--device``, the refused flag, the launch flags on one process, and that no
+file of the port imports jax or the JAX package."""
 import json
 import os
 import re
@@ -147,17 +147,35 @@ def test_cli_cuda_without_a_card_raises():
     assert common.base_parser("x").parse_args([]).device == "cuda"
 
 
-@pytest.mark.parametrize(
-    "flag",
-    [["--accum_steps", "2"], ["--mesh_data", "1"], ["--mesh_model", "2"], ["--mesh_dcn", "2"],
-     ["--coordinator_address", "localhost:1"], ["--num_processes", "2"], ["--process_id", "0"],
-     ["--log_all_hosts"], ["--distributed"]],
-    ids=lambda f: f[0].lstrip("-"),
-)
+@pytest.mark.parametrize("flag", [["--accum_steps", "2"]], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match=f"{flag[0]}.*not ported yet|{flag[0]}.*slice"):
         train_dien.main(COMMON + TINY + flag)
     assert flag[0].lstrip("-") in common.UNPORTED_FLAGS
+
+
+@pytest.mark.parametrize(
+    "flag,refusal",
+    [(["--mesh_data", "1"], None), (["--mesh_model", "2"], "needs 2 ranks"),
+     (["--mesh_dcn", "2"], "needs 2 ranks"),
+     (["--coordinator_address", "localhost:1"], "needs --num_processes"),
+     (["--num_processes", "2"], None), (["--process_id", "0"], None),
+     (["--log_all_hosts"], None), (["--distributed"], "no rendezvous")],
+    ids=lambda f: f[0].lstrip("-") if isinstance(f, list) else None,
+)
+def test_cli_launch_flags_on_one_process(capsys, monkeypatch, flag, refusal):
+    """The mesh and launch flags are ported (``tests/test_torch_distributed.py``
+    launches ranks with them); in one process without a rendezvous a mesh
+    needs the ranks it names, ``--coordinator_address`` its identity and
+    ``--distributed`` torchrun's environment, and the rest run as one rank."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    if refusal:
+        with pytest.raises(SystemExit, match=refusal):
+            train_dien.main(COMMON + TINY + flag)
+        return
+    assert train_dien.main(COMMON + TINY + flag).step == 10
+    assert _lines(capsys)[-1]["final"] == 1
 
 
 def test_flags_and_defaults_are_the_jax_entry_points():
@@ -166,6 +184,7 @@ def test_flags_and_defaults_are_the_jax_entry_points():
     ours = {a.dest: a.default for a in common.base_parser("x")._actions}
     theirs = {a.dest: a.default for a in jax_base_parser("x")._actions}
     assert ours.pop("device") == "cuda"
+    assert ours.pop("dist_backend") == "auto"  # the port's: gloo for ranks sharing a card
     assert ours == theirs
     assert set(common.UNPORTED_FLAGS) <= set(theirs)
     assert all(theirs[k] == v[0] for k, v in common.UNPORTED_FLAGS.items())

@@ -199,23 +199,39 @@ def test_cli_resume_refuses_another_stream(capsys, tmp_path, shard_dir, flag):
 # ----------------------------------------------------------------- flags
 @pytest.mark.parametrize(
     "flag,match",
-    [(["--lookup_mode", "psum"], "sharded-table slice"),
-     (["--lookup_mode", "a2a"], "sharded-table slice"),
-     (["--mesh_model", "2"], "sharded-table slice"),
-     (["--mesh_data", "2"], "sharded-table slice"),
-     (["--mesh_dcn", "2"], "sharded-table slice"),
-     (["--accum_steps", "2"], "gradient accumulation"),
-     (["--accum_steps", "2", "--dedup_lookup", "on"], "gradient accumulation"),
-     (["--distributed"], "multi-GPU slice"),
-     (["--coordinator_address", "localhost:1"], "multi-GPU slice"),
-     (["--num_processes", "2"], "multi-GPU slice"),
-     (["--process_id", "0"], "multi-GPU slice"),
-     (["--log_all_hosts"], "multi-GPU slice")],
+    [(["--accum_steps", "2"], "gradient accumulation"),
+     (["--accum_steps", "2", "--dedup_lookup", "on"], "gradient accumulation")],
     ids=lambda x: "_".join(x).lstrip("-") if isinstance(x, list) else None,
 )
 def test_cli_refuses_unported_flags(flag, match):
     with pytest.raises(SystemExit, match=match):
         train_ctr.main(COMMON + TINY + ["--synthetic", "--steps", "1"] + flag)
+
+
+@pytest.mark.parametrize(
+    "flag,refusal",
+    [(["--lookup_mode", "psum"], None), (["--lookup_mode", "a2a"], None),
+     (["--mesh_model", "2"], "needs 2 ranks"), (["--mesh_data", "2"], "needs 2 ranks"),
+     (["--mesh_dcn", "2"], "needs 2 ranks"), (["--distributed"], "no rendezvous"),
+     (["--coordinator_address", "localhost:1"], "needs --num_processes"),
+     (["--num_processes", "2"], None), (["--process_id", "0"], None),
+     (["--log_all_hosts"], None)],
+    ids=lambda x: "_".join(x).lstrip("-") if isinstance(x, list) else None,
+)
+def test_cli_distribution_flags_on_one_process(capsys, monkeypatch, flag, refusal):
+    """Ported: ``tests/test_torch_distributed.py`` runs them across ranks. In
+    one process the exchanges leave the table whole (a one-wide model
+    axis), a mesh needs its ranks, a launch its identity or torchrun's
+    environment."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    argv = COMMON + TINY + ["--synthetic", "--steps", "1"] + flag
+    if refusal:
+        with pytest.raises(SystemExit, match=refusal):
+            train_ctr.main(argv)
+        return
+    state = train_ctr.main(argv)
+    assert state.step == 1 and not state.model.embedding.sharded
 
 
 @pytest.mark.parametrize("mode", ["auto", "gspmd"])
@@ -267,6 +283,8 @@ def test_flags_and_defaults_are_the_jax_entry_points(name):
     ours = _flags(_parser_of({"train_ctr": train_ctr, "predict": predict}[name]))
     theirs = _flags(_parser_of(importlib.import_module(f"recommender_tpu.cli.{name}")))
     assert ours.pop("device") == ("cuda", None)
+    if name == "train_ctr":  # the port's: gloo for ranks sharing a card
+        assert ours.pop("dist_backend") == ("auto", ("auto", "nccl", "gloo"))
     assert ours == theirs
     if name == "train_ctr":
         assert set(common.UNPORTED_FLAGS) <= set(theirs)

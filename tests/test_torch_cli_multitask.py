@@ -348,6 +348,8 @@ def test_flags_and_defaults_are_the_jax_entry_points(name):
     theirs = flags(parser_of(importlib.import_module(f"recommender_tpu.cli.{name}")))
     if name != "prepare_aliccp":
         assert ours.pop("device") == ("cuda", None)
+        # the port's: gloo for ranks sharing a card
+        assert ours.pop("dist_backend") == ("auto", ("auto", "nccl", "gloo"))
     assert ours == theirs
 
 

@@ -26,6 +26,7 @@ from recommender_tpu_torch.convert import (
     jax_leaf_order,
     load_flax_params,
 )
+from recommender_tpu_torch.core.mesh import Mesh
 from recommender_tpu_torch.embedding.table import Embedding
 from recommender_tpu_torch.models import DLRM, make_ctr_task
 
@@ -142,10 +143,14 @@ def test_embedding_init_bound_and_std(dtype):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        Embedding(10, 4, partition="model")
-    with pytest.raises(NotImplementedError):
-        Embedding(10, 4, lookup_mode="a2a")
+    # row-sharded tables and their exchanges are ported (tests/test_torch_sharded.py);
+    # without a mesh a partitioned table is whole, as over one device in JAX
+    assert Embedding(10, 4, partition="model").embedding.shape == (10, 4)
+    assert not Embedding(10, 4, partition="model", lookup_mode="a2a").sharded
+    with pytest.raises(ValueError, match="lookup_mode"):
+        Embedding(10, 4, lookup_mode="ring")
+    with pytest.raises(ValueError, match="not divisible"):
+        Embedding(10, 4, partition="model", mesh=Mesh(1, 4))
     # a dedup plan is ported (tests/test_torch_dedup.py); one for other ids is refused
     plan = {k: torch.zeros(3, dtype=torch.int32) for k in ("perm", "slot", "uniq")}
     with pytest.raises(ValueError):

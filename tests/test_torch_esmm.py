@@ -246,12 +246,17 @@ def test_feature_embedder_matches_jax(table_dtype, stack):
 
 
 def test_unported_policies_raise():
-    with pytest.raises(NotImplementedError):
-        FeatureEmbedder(VOCABS, D, partition="model")
-    with pytest.raises(NotImplementedError):
-        FeatureEmbedder(VOCABS, D, lookup_modes="a2a")
-    with pytest.raises(NotImplementedError):
-        FeatureEmbedder(VOCABS, D, lookup_modes=("gspmd",) * F)
+    # per-feature policies and sharded tables are ported (tests/test_torch_distributed.py);
+    # a policy tuple makes the tables separate, as in JAX
+    emb = FeatureEmbedder(VOCABS, D, stack=True, lookup_modes=("gspmd",) * F)
+    assert not emb.stack and len(emb.tables()) == F
+    assert [t.lookup_mode for t in FeatureEmbedder(
+        VOCABS, D, lookup_modes=("psum", "a2a") * (F // 2) + ("psum",) * (F % 2)).tables()][:2] == [
+        "psum", "a2a"]
+    with pytest.raises(ValueError, match="per-feature"):
+        FeatureEmbedder(VOCABS, D, partition=("model",) * (F + 1))
+    with pytest.raises(ValueError, match="only the gspmd lookup"):
+        FeatureEmbedder(VOCABS, D, stack=True, lookup_modes="a2a")
     with pytest.raises(ValueError, match="f32-only"):
         FeatureEmbedder(VOCABS, D, stack=True, param_dtype=torch.bfloat16)
 

@@ -26,6 +26,7 @@ from recommender_tpu.retrieval import eval as jax_eval
 from recommender_tpu.retrieval import export as jax_export
 from recommender_tpu.retrieval import ivf as jax_ivf
 from recommender_tpu.retrieval import quantize as jax_quantize
+from recommender_tpu_torch.core.mesh import make_mesh
 from recommender_tpu_torch.retrieval import eval as reval
 from recommender_tpu_torch.retrieval import export, ivf, quantize
 
@@ -154,8 +155,11 @@ def test_seen_format_and_hit_rate():
     recs = rng.integers(0, V, (U, 5))
     gt = (rng.random((U, V)) < 0.2).astype(np.int8)
     assert reval.hit_rate(recs, gt) == jax_eval.hit_rate(recs, gt)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        reval.recommend_topk(rng.normal(size=(V, 4)), np.zeros(U, int), mask_int > 0, mesh=1)
+    # mesh= is data-parallel serving; a one-rank mesh serves as no mesh does
+    reprs = rng.normal(size=(V, 4)).astype(np.float32)
+    np.testing.assert_array_equal(
+        reval.recommend_topk(reprs, np.zeros(U, int), mask_int > 0, mesh=make_mesh()),
+        reval.recommend_topk(reprs, np.zeros(U, int), mask_int > 0))
 
 
 # ------------------------------------------------------------ IVF

@@ -11,13 +11,16 @@ largest (measured 1e-7). Gradients within 1e-2 of each one's largest
 magnitude: a tower bias's gradient is a sum of bf16 cotangents over the
 batch, which the two libraries round differently (measured up to 8e-3;
 every other gradient equal). The loss against its own definition within
-1e-5 relative.
+1e-5 relative. Across data ranks (``torch_dist_workers``, CPU gloo ranks)
+the loss's negatives are the global batch's items, gathered: N ranks equal
+one rank as the last test states.
 """
 import jax
 import numpy as np
 import pytest
 import torch
 
+import torch_dist_workers as W
 from recommender_tpu.models import two_tower as jax_two_tower
 from recommender_tpu.models.tasks import init_model as jax_init_model
 from recommender_tpu_torch.convert import load_flax_params
@@ -165,3 +168,45 @@ def test_two_tower_learns_communities():
     for u in range(0, g.num_users, 37):
         assert not seen[u][recs[u]].any()
 
+
+
+# ------------------------------------------------------- across data ranks
+def _global_batch(n=16):
+    rng = np.random.default_rng(3)
+    return {"user_id": rng.integers(0, W.TT_KW["user_vocab"], n).astype(np.int32),
+            "item_id": rng.integers(0, W.TT_KW["item_vocab"], n).astype(np.int32)}
+
+
+@pytest.fixture(scope="module")
+def tt_init():
+    jm = jax_two_tower.TwoTower(**W.TT_KW)
+    batch = _global_batch()
+    params, _ = jax_init_model(jm, batch)
+    jloss, _ = jax_two_tower.make_two_tower_task(jm)
+    want = float(jloss(params, {}, batch, jax.random.PRNGKey(0), True)[0].mean())
+    return jax.tree.map(np.asarray, params), batch, want
+
+
+@pytest.mark.parametrize("f32_towers", [True, False], ids=["f32_towers", "bf16_towers"])
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_data_ranks_give_one_ranks_loss_and_gradients(tmp_path, tt_init, ranks, f32_towers):
+    """N ranks of b/N rows, the item reprs gathered across them, against
+    one rank of b: the same loss within 1e-6, and (the Trainer's average
+    over ranks) the same gradients within 1e-6 of each one's largest entry
+    with f32 towers; with the shipped bf16 towers each rank's tower
+    gradients are rounded before the average: within 1e-2, the bound
+    against JAX above. The shipped towers' loss equals JAX's single-device
+    loss on the converted weights within 1e-5 relative."""
+    params, batch, want_loss = tt_init
+    one = W.two_tower_grads(0, 1, "", params, batch, f32_towers)
+    many = W.spawn(W.two_tower_grads, ranks, tmp_path, params, batch, f32_towers)
+    tol = 1e-6 if f32_towers else 1e-2
+    for r in many:
+        assert abs(r["loss"] - one["loss"]) <= 1e-6
+        for name, g in one["grads"].items():
+            assert np.max(np.abs(r["grads"][name] - g)) <= tol * np.max(np.abs(g)), name
+    hits = np.concatenate([r["hits"] for r in many])  # the labels follow the global rows
+    np.testing.assert_array_equal(hits, one["hits"])
+    assert abs(np.mean([r["top1"] for r in many]) - one["top1"]) <= 1e-6
+    if not f32_towers:
+        assert abs(one["loss"] - want_loss) <= 1e-5 * abs(want_loss)
