@@ -87,7 +87,10 @@ Phases, one JSON line each (k2 one per shape):
                   BST's shape (B 1024, L 101, H 4, Dh 9, ``valid`` from a
                   real batch; fused forward and backward), at L 128 (fused)
                   and L 129 (long routes), B 256, and at the TPU probe's
-                  B 128, L 1001, H 4 with Dh 9 and 64 (long routes): the
+                  B 128, L 1001, H 4 with Dh 9, 64 and 128 (long routes);
+                  then the chunked Dh > 64 kernels at BST's rows with one
+                  head of Dh 128 (fused forward, long backward) and of Dh
+                  72 (fused both ways), and Dh 256 at B 256, H 2: the
                   routes ``fwd_route`` and ``bwd_route`` pick, errors,
                   bitwise repeatability; times of the forward, of forward +
                   backward, of the backward and of each kernel alone
@@ -116,6 +119,11 @@ Phases, one JSON line each (k2 one per shape):
                   from the same init: the losses must agree.
 9. bst_card_cpu — a small BST for 3 steps from one init on the card (K2)
                   and on the CPU (its plain version); the losses must agree.
+    bst_dh128   — BST on the same data with item_dim = cat_dim = 64 and one
+                  head (Dh 128): 30 steps with flash attention (exact K2
+                  launch counts on the chunked kernels: the fused forward,
+                  the long backward), then 30 from the same init with
+                  plain attention: the losses must agree.
 10. dien_train  — 50 DIEN Trainer steps at full width (f32 tables, the
                   auxiliary-loss task), then ``evaluate`` on 20 held-out
                   batches; K1 must launch exactly 6 times a step. Then 10
@@ -145,6 +153,16 @@ Phases, one JSON line each (k2 one per shape):
 16. ctr_predict — ``cli.predict.main`` on the card from the resumed
                   checkpoint at b8192: its scores equal the restored model's
                   eval forward on the same batches; examples/s.
+    accum       — gradient accumulation at ``bench.py`` width: the
+                  Trainer's f32 gradients of one b8192 batch at
+                  ``accum_steps`` 4 against the four quarter batches run one
+                  by one and averaged (bit for bit, or within
+                  ``ACCUM_GRAD_REL_TOL``); ``cli.train_ctr --accum_steps 4``
+                  and 1, 20 steps each: the losses within ``ACCUM_LOSS_TOL``,
+                  ms a step and peak device memory of each.
+    profiling   — ``core.profiling.trace`` around 5 DLRM steps, each step's
+                  copy and step in an ``annotate`` mark: the trace file names
+                  both marks and K1's kernels.
 17. mmoe_train  — MMOE at ``bench_models.py::bench_mmoe_large`` width (18
                   tables of 100,000 x 18, 8 experts 324→200→80, 2 gates,
                   towers 80→40→1, b8192), 50 steps each with per-table f32
@@ -271,7 +289,12 @@ runs the distribution phases (28-33) alone, after the build, and
     python3 chip_smoke.py --probe-gloo-cuda
 
 asks two ranks on this card which of the port's four collectives gloo
-takes on CUDA tensors (``probe_gloo_cuda``).
+takes on CUDA tensors (``probe_gloo_cuda``), and
+
+    python3 chip_smoke.py --ptxas
+
+compiles the K2 sources with ``nvcc -Xptxas -v`` and prints each kernel's
+registers, spill bytes and stack (``ptxas_report``).
 
 Any failed check raises, so the script exits non-zero without the last
 line. It exits non-zero at once where no CUDA device is available.
@@ -286,12 +309,14 @@ import functools
 import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -307,6 +332,7 @@ from recommender_tpu_torch.cli import (
     train_pinsage,
     train_twotower,
 )
+from recommender_tpu_torch.core import profiling
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 from recommender_tpu_torch.data import (
     SyntheticCTR,
@@ -413,6 +439,17 @@ BST_PATHS_AUC_TOL = 5e-3
 # BST at the TPU flash probe's shape (benchmarks/logs/bst_flash_r5.log,
 # bst_Dh9_T1000_b128): history 1,000, so L 1,001 takes K2's long backward
 # route; a few Trainer steps with flash, then with plain attention.
+# BST at Dh 128 (phase bst_dh128): item_dim = cat_dim = 64, one head
+BST_DH128 = dict(item_dim=64, cat_dim=64, num_heads=1)
+BST_DH128_STEPS = 30
+# gradient accumulation (phase accum): cli.train_ctr at bench.py width
+ACCUM = 4
+ACCUM_STEPS = 20
+ACCUM_LOSS_TOL = 2e-3  # 20 steps of SR-Adam over 4 microbatches vs 1 batch
+ACCUM_GRAD_REL_TOL = 1e-6  # of each tensor's max |grad|, where not bit for bit
+# core.profiling (phase profiling)
+PROFILE_STEPS = 5
+PROFILE_MARKS = ("smoke_put_batch", "smoke_train_step")
 BST_LONG_T = 1000
 BST_LONG_BATCH = 128
 BST_LONG_STEPS = 5
@@ -614,6 +651,37 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def ptxas_report() -> dict:
+    """Registers, spill bytes and stack of every kernel of the K2 sources,
+    as ``nvcc -Xptxas -v`` reports them when it compiles them with the
+    port's flags (into a scratch library under the build directory), by
+    demangled kernel name."""
+    out = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        so = _build.BUILD_DIR / f"ptxas-{name}.so"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                               str(so), str(_build.CSRC_DIR / f"{name}.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        kernel = None
+        for line in proc.stderr.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                            r"(\d+) bytes spill loads", line)):
+                out.setdefault(kernel, {}).update(
+                    stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+                out.setdefault(kernel, {})["registers"] = int(m[1])
+        so.unlink(missing_ok=True)
+    filt = Path(_build.nvcc_path()).with_name("cu++filt")
+    names = (subprocess.run([str(filt)], input="\n".join(out), capture_output=True,
+                            text=True).stdout.split("\n") if filt.exists() else list(out))
+    return {demangled or k: v for k, demangled, v in zip(out, names, out.values())}
 
 
 # ------------------------------------------------------------------ phases
@@ -847,21 +915,32 @@ def k2_valid(history: np.ndarray, device) -> torch.Tensor:
 
 
 def k2_shapes(device, bst_train: dict) -> dict:
-    """Phase k2's shapes, key: (case name, valid, head dim, the route of the
-    forward and of the backward). H is 4 at each."""
+    """Phase k2's shapes, key: (case name, valid, heads, head dim, the
+    forward's route, the backward's). Above Dh 64 the kernels work in
+    chunks of 64 columns: BST's L 101 with one head of Dh 128 (item_dim =
+    cat_dim = 64) and of the odd Dh 72, the probe's L 1001 at Dh 128, and
+    the wide Dh 256."""
     def history_valid(max_len, batch):
         gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=max_len, seed=SEED)
         return k2_valid(gen.sample(batch, seed=1)["pos_his_item"], device)
 
     r5_valid = history_valid(1000, 128)
+    bst_valid = k2_valid(bst_train["pos_his_item"][:BST_BATCH], device)
     return {
-        "bst": ("bst_b1024_L101_Dh9", k2_valid(bst_train["pos_his_item"][:BST_BATCH], device),
-                9, "fused"),
-        "l128": ("b256_L128_Dh9", history_valid(127, 256), 9, "fused"),
-        "l129": ("b256_L129_Dh9", history_valid(128, 256), 9, "long"),
-        "r5_dh9": ("probe_b128_L1001_Dh9", r5_valid, 9, "long"),
-        "r5_dh64": ("probe_b128_L1001_Dh64", r5_valid, 64, "long"),
+        "bst": ("bst_b1024_L101_Dh9", bst_valid, 4, 9, "fused", "fused"),
+        "l128": ("b256_L128_Dh9", history_valid(127, 256), 4, 9, "fused", "fused"),
+        "l129": ("b256_L129_Dh9", history_valid(128, 256), 4, 9, "long", "long"),
+        "r5_dh9": ("probe_b128_L1001_Dh9", r5_valid, 4, 9, "long", "long"),
+        "r5_dh64": ("probe_b128_L1001_Dh64", r5_valid, 4, 64, "long", "long"),
+        "r5_dh128": ("probe_b128_L1001_Dh128", r5_valid, 4, 128, "long", "long"),
+        "bst_dh128": ("b1024_L101_Dh128", bst_valid, 1, 128, "fused", "long"),
+        "bst_dh72": ("b1024_L101_Dh72", bst_valid, 1, 72, "fused", "fused"),
+        "dh256": ("b256_L101_Dh256", bst_valid[:256], 2, 256, "long", "long"),
     }
+
+
+# phase k2's cases at Dh > 64 (the chunked kernels), beside the kernels line
+K2_WIDE_CASES = ("r5_dh128", "bst_dh128", "bst_dh72", "dh256")
 
 
 def k2_work(valid: torch.Tensor, heads: int, head_dim: int) -> dict:
@@ -1118,12 +1197,12 @@ def _set_flash(model, on: bool):
         blk.use_flash = on
 
 
-def _bst_fit(model, device, train, log_fn):
+def _bst_fit(model, device, train, log_fn, steps: int = STEPS):
     loss_fn, eval_fn = make_ctr_task(model)
     cfg = TrainConfig(learning_rate=LR, log_every=1, eval_every=0, seed=SEED)
     trainer = Trainer(loss_fn, cfg, eval_fn, device=device)
     state = trainer.init_state(lambda: model)
-    state, _ = trainer.fit(state, batch_iterator(train, BST_BATCH, seed=SEED), STEPS, log_fn=log_fn)
+    state, _ = trainer.fit(state, batch_iterator(train, BST_BATCH, seed=SEED), steps, log_fn=log_fn)
     return trainer, state
 
 
@@ -1185,6 +1264,52 @@ def phase_bst_train(device, train, test) -> dict:
     check(path_diff <= BST_PATHS_LOSS_TOL, f"flash vs plain BST losses differ by {path_diff}")
     check(auc_diff <= BST_PATHS_AUC_TOL, f"flash vs plain BST eval AUC differ by {auc_diff}")
     return launches
+
+
+def phase_bst_dh128(device, train) -> dict:
+    """BST on ``bst_amazon_b1024_T100``'s data with item_dim = cat_dim = 64
+    and one head, so Dh 128: BST_DH128_STEPS Trainer steps with flash
+    attention (K2's Dh > 64 kernels: the fused forward, and at L 101 the
+    long backward's dK/dV and dQ), then as many from the same init with
+    plain attention; the losses must agree."""
+    L = BST_T + 1
+    check(fa.fwd_route(L, 1, 128) == "fused" and fa.bwd_route(L, 1, 128) == "long",
+          "BST at Dh 128: unexpected K2 routes")
+    model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, **BST_DH128, device=device)
+    init_model(model, seed=SEED)
+    plain_model = copy.deepcopy(model)
+    _set_flash(model, True)
+    runs = {}
+    for name, m in (("flash", model), ("plain", plain_model)):
+        stamps, losses = [], []
+
+        def log_fn(x, stamps=stamps, losses=losses):
+            stamps.append(time.perf_counter())  # float(loss) at each step syncs
+            losses.append(x["loss"])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _, state = _bst_fit(m, device, train, log_fn, BST_DH128_STEPS)
+        torch.cuda.synchronize()
+        step_ms = np.diff(np.array(stamps))[-(BST_DH128_STEPS // 2):] * 1e3
+        runs[name] = dict(steps=state.step, losses=losses,
+                          launches=dict(k1=ek.sorted_scatter_add.launches, **k2_counts()),
+                          ms_per_step_median=float(np.median(step_ms)),
+                          peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    flash, plain = runs["flash"], runs["plain"]
+    diff = max(abs(a - b) for a, b in zip(flash["losses"], plain["losses"]))
+    fwd = 2 * BST_DH128_STEPS  # two blocks
+    want = dict(k1=4 * BST_DH128_STEPS, fwd=fwd, fwd_fused=fwd, fwd_long=0, bwd=0,
+                bwd_dkv=fwd, bwd_dq=fwd)
+    emit("bst_dh128", batch=BST_BATCH, history=BST_T, heads=1, head_dim=128, **BST_DH128,
+         flash=flash, plain=plain, flash_vs_plain_max_loss_diff=diff,
+         loss_tolerance=BST_PATHS_LOSS_TOL, expected_launches=want)
+    check(flash["steps"] == plain["steps"] == BST_DH128_STEPS, "BST Dh 128 step counts")
+    check(all(math.isfinite(x) for x in flash["losses"]), "non-finite BST Dh 128 loss")
+    check(flash["launches"] == want, f"BST Dh 128 launches {flash['launches']}, wanted {want}")
+    check(diff <= BST_PATHS_LOSS_TOL, f"BST Dh 128: flash vs plain losses differ by {diff}")
+    return flash["launches"]
 
 
 def phase_bst_long(device) -> dict:
@@ -1632,6 +1757,116 @@ def phase_ctr_cli() -> dict:
     check(launches == 2 * 2 * CTR_RESUME_STEPS, f"resume runs launched K1 {launches} times")
     runs["resume"] = dict(k1_launches=launches, state=resumed)
     return runs
+
+
+def phase_accum(device) -> dict:
+    """Gradient accumulation at bench.py's DLRM width (1M x 16 bf16 table,
+    SR-Adam, b8192). First the Trainer's f32 gradients of one batch at
+    accum_steps 4 against the average of the same four quarter batches run
+    one by one (the ranks' shapes, as ``_dist_dp`` takes the halves): the
+    sums are in the same order, so they must agree bit for bit or, where a
+    library product rounds otherwise, within ACCUM_GRAD_REL_TOL of each
+    tensor's largest entry. Then ``cli.train_ctr`` with ``--accum_steps 4``
+    and 1 for ACCUM_STEPS steps: the losses within ACCUM_LOSS_TOL, the step
+    time and the peak device memory of each."""
+    batch = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(BATCH, seed=1)
+    model = DLRM(VOCAB, DIM, embed_param_dtype=torch.bfloat16, device=device)
+    init_model(model, seed=SEED)
+    loss_fn, eval_fn = make_ctr_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, accum_steps=ACCUM, seed=SEED),
+                      eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    params = state.optimizer.param_groups[0]["params"]
+    names = {id(p): n for n, p in model.named_parameters()}
+    local = trainer.put_batch(batch)
+    reset_counts()
+    got, _ = trainer._accumulate(state, local, ACCUM, params)
+    grad_k1 = ek.sorted_scatter_add.launches
+    quarter = BATCH // ACCUM
+    want = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in params]
+    for i in range(ACCUM):
+        model.zero_grad(set_to_none=True)
+        per_ex, _ = loss_fn({k: v[i * quarter:(i + 1) * quarter] for k, v in local.items()}, True)
+        torch.mean(per_ex).backward()
+        for w, p in zip(want, params):
+            w += p.grad.float()
+    model.zero_grad(set_to_none=True)
+    want = [w / ACCUM for w in want]
+    torch.cuda.synchronize()
+    rel = {names[id(p)]: float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+           for p, g, w in zip(params, got, want)}
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    dtypes = sorted({str(g.dtype) for g in got})
+    del model, trainer, state, params, got, want, local
+
+    runs = {}
+    for a in (1, ACCUM):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = _ctr_run(f"accum_{a}", [*CTR_ARGS, "--model_type", "DLRM", "--dedup_lookup", "off",
+                                      "--accum_steps", str(a)], ACCUM_STEPS, a)
+        run.pop("state")
+        run["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[a] = run
+    diff = max(abs(x - y) for x, y in zip(runs[ACCUM]["losses"], runs[1]["losses"]))
+    emit("accum", accum_steps=ACCUM, batch=BATCH, microbatch=quarter,
+         grad_dtypes=dtypes, grad_bitwise_equal=bitwise, grad_max_rel_err=rel,
+         grad_rel_tolerance=ACCUM_GRAD_REL_TOL, grad_k1_launches=grad_k1,
+         losses={a: runs[a]["losses"] for a in runs}, max_loss_diff=diff,
+         loss_tolerance=ACCUM_LOSS_TOL,
+         ms_per_step_median={a: runs[a]["ms_per_step_median"] for a in runs},
+         peak_memory_gib={a: runs[a]["peak_memory_gib"] for a in runs})
+    check(dtypes == ["torch.float32"], f"accumulated gradients are {dtypes}, not f32")
+    check(grad_k1 == ACCUM, f"K1 launched {grad_k1} times for {ACCUM} microbatches")
+    check(bitwise or max(rel.values()) <= ACCUM_GRAD_REL_TOL,
+          f"accumulated gradients off the quarters' average by {max(rel.values())}")
+    check(diff <= ACCUM_LOSS_TOL, f"--accum_steps {ACCUM} vs 1: losses differ by {diff}")
+    return {f"accum_cli_{a}": runs[a]["k1_launches"] for a in runs} | {"accum_grads": grad_k1}
+
+
+def phase_profiling(device) -> int:
+    """``core.profiling.trace`` around PROFILE_STEPS DLRM Trainer steps at
+    bench.py width, each step's batch copy and step inside an ``annotate``
+    mark: the trace file must exist and name both marks and K1's kernels."""
+    train = SyntheticCTR(vocab_size=VOCAB, seed=SEED).sample(PROFILE_STEPS * BATCH, seed=1)
+    model = DLRM(VOCAB, DIM, embed_param_dtype=torch.bfloat16, device=device)
+    init_model(model, seed=SEED)
+    loss_fn, eval_fn = make_ctr_task(model)
+    trainer = Trainer(loss_fn, TrainConfig(learning_rate=LR, seed=SEED), eval_fn, device=device)
+    state = trainer.init_state(lambda: model)
+    batches = list(batch_iterator(train, BATCH, seed=SEED))
+    root = _build.BUILD_DIR / "profiling"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(str(root)) as prof:
+        for b in batches:
+            with profiling.annotate(PROFILE_MARKS[0]):
+                local = trainer.put_batch(b)
+            with profiling.annotate(PROFILE_MARKS[1]):
+                state, _ = trainer.train_step(state, local)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ek.sorted_scatter_add.launches
+    files = sorted(root.glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if files else []
+    names = {e.get("name", "") for e in events}
+    k1_kernels = sorted(n for n in names if any(f in n for f in dict(PROFILE_PARTS)["k1"]))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / PROFILE_STEPS
+    emit("profiling", steps=PROFILE_STEPS, trace_files=[f.name for f in files],
+         trace_mib=files[0].stat().st_size / 2**20 if files else 0, events=len(events),
+         marks={m: m in names for m in PROFILE_MARKS}, k1_kernels=k1_kernels,
+         k1_launches=launches, seconds=seconds, device_busy_ms_per_step=device_ms,
+         launches_per_step=len(kernels) / PROFILE_STEPS)
+    check(len(files) == 1, f"trace wrote {len(files)} files")
+    check(all(m in names for m in PROFILE_MARKS), "the trace lacks an annotate mark")
+    check(all(any(f in n for n in k1_kernels) for f in dict(PROFILE_PARTS)["k1"]),
+          f"the trace names K1's kernels {k1_kernels}")
+    check(launches == PROFILE_STEPS, f"K1 launched {launches} times in {PROFILE_STEPS} steps")
+    return launches
 
 
 def phase_ctr_predict(state) -> dict:
@@ -3552,6 +3787,11 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}), flush=True)
         return 0
+    if sys.argv[1:] == ["--ptxas"]:
+        smi = phase_device()
+        emit("ptxas", kernels=ptxas_report())
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--probe-gloo-cuda"]:
         smi = phase_device()
         emit("gloo_cuda_probe", torch=torch.__version__, calls=probe_gloo_cuda())
@@ -3565,7 +3805,7 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         print(f"usage: {sys.argv[0]} [--profile-bst | --profile-dien | --profile-mt-graph | "
-              "--fwd-occupancy | --probe-gloo-cuda | --dist]",
+              "--fwd-occupancy | --probe-gloo-cuda | --dist | --ptxas]",
               file=sys.stderr)
         return 2
     smi = phase_device()
@@ -3583,15 +3823,16 @@ def main() -> int:
                   ps_graph[1].year, next(interaction_batches(tt_graph, 1024, seed=SEED)))
     k2_cases = k2_shapes(device, bst_train)
     k2 = {}
-    for key, (case, valid, head_dim, route) in k2_cases.items():
-        k2[key] = phase_k2(device, case, valid, 4, head_dim)
+    for key, (case, valid, heads, head_dim, fwd_route, bwd_route) in k2_cases.items():
+        k2[key] = phase_k2(device, case, valid, heads, head_dim)
         took = (k2[key]["fwd_route"], k2[key]["route"])
-        check(took == (route, route), f"K2 {case} took the {took} routes")
+        check(took == (fwd_route, bwd_route), f"K2 {case} took the {took} routes")
     dlrm_k1 = phase_train(device)
     phase_card_cpu(device)
     bst_launches = phase_bst_train(device, bst_train, bst_test)
     long_launches = phase_bst_long(device)
     phase_bst_card_cpu(device)
+    dh128_launches = phase_bst_dh128(device, bst_train)
     dien_k1 = phase_dien_train(device, seq_train, seq_test)
     din_k1 = phase_din_train(device, seq_train)
     dien_long_k1 = phase_dien_long(device)
@@ -3601,6 +3842,10 @@ def main() -> int:
     ctr = phase_ctr_cli()
     ctr_predict = phase_ctr_predict(ctr["resume"]["state"])
     emit("ctr_phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    accum_k1 = phase_accum(device)
+    profiling_k1 = phase_profiling(device)
+    emit("accum_profiling_phases", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     mmoe_k1 = phase_mmoe_train(device, mt_train, mt_test)
     phase_mt_graph_card_cpu(device, graph)
@@ -3623,7 +3868,8 @@ def main() -> int:
                                 + ctr["dlrm_dedup_again"]["k1_launches"]),
               "deepfm": ctr["deepfm"]["k1_launches"], "dcn": ctr["dcn"]["k1_launches"],
               "ctr_shards": ctr["shards"]["k1_launches"],
-              "ctr_resume": ctr["resume"]["k1_launches"], "ctr_predict": ctr_predict["k1_launches"]}
+              "ctr_resume": ctr["resume"]["k1_launches"], "ctr_predict": ctr_predict["k1_launches"],
+              **accum_k1, "profiling": profiling_k1, "bst_dh128": dh128_launches["k1"]}
     graph_k1 = {"mmoe_esmm": mmoe_k1, "esmm_cli": esmm_cli_k1, "eges": eges_k1,
                 "eges_cli": eges_cli_k1}
     print(smi, flush=True)
@@ -3682,7 +3928,8 @@ def main() -> int:
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     # each K2 kernel at the shape of its main path: the fused forward and
-    # backward at BST's, the long routes' at the BST run with history 1,000
+    # backward at BST's, the long routes' at the BST run with history 1,000;
+    # beside them, each at the Dh > 64 cases of its route (the chunked kernels)
     for name, kernel, route_key, route, case, errs in (
         ("fwd_fused", "fwd", "fwd_route", "fused", "bst", ("o",)),
         ("fwd_long", "fwd", "fwd_route", "long", "r5_dh9", ("o",)),
@@ -3699,7 +3946,9 @@ def main() -> int:
             "source": K2_SOURCE if fwd else K2_BWD_SOURCE,
             "replaces": K2_REPLACES,
             "tpu_kernel": K2_TPU_KERNELS[kernel],
-            "launches": bst_launches[name] + long_launches[name],
+            "launches": bst_launches[name] + long_launches[name] + dh128_launches[name],
+            "launches_by_path": dict(bst=bst_launches[name], bst_long=long_launches[name],
+                                     bst_dh128=dh128_launches[name]),
             "max_abs_err": max(x["abs_err"][n] for x in same_route for n in errs),
             "shape": k2_cases[case][0],
             # the forward through flash_mha, the backward's kernels alone
@@ -3711,6 +3960,17 @@ def main() -> int:
             "bound_by": r["bounds"][kernel]["bound_by"],
             # scaled_dot_product_attention's forward; its whole backward for the others
             "library_ms": r["library_fwd_ms"] if fwd else r["library_bwd_ms"],
+            "wide_head_dims": {
+                k2_cases[key][0]: {
+                    "max_abs_err": max(k2[key]["abs_err"][n] for n in errs),
+                    "ms": k2[key]["fwd_ms"] if fwd else k2[key]["kernel_ms"][kernel],
+                    "kernel_ms": k2[key]["kernel_ms"][kernel],
+                    "plain_ms": k2[key]["plain_fwd_ms"] if fwd else k2[key]["plain_bwd_ms"],
+                    "bound_ms": k2[key]["bounds"][kernel]["bound_ms"],
+                    "bound_by": k2[key]["bounds"][kernel]["bound_by"],
+                    "library_ms": (k2[key]["library_fwd_ms"] if fwd
+                                   else k2[key]["library_bwd_ms"]),
+                } for key in K2_WIDE_CASES if k2[key][route_key] == route},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,15 +14,19 @@ and ``cli.predict``, the multi-task family (BASE, ESMM, MMOE) through
 graph-embedding family (BGE, GES, EGES) through ``cli.train_eges``,
 retrieval and serving, and distribution: one process per GPU on a
 (data, model) mesh of ranks, row-sharded tables, data-parallel training
-and checkpoints across meshes:
+and checkpoints across meshes; the last, gradient accumulation, the
+optimizer and rounding switches, Criteo preparation, profiling and the
+remaining public names:
 
 * ``cli``       — ``train_dien`` (BASE / DIN / DIEN / BST), ``train_ctr``
                   (DLRM / DeepFM / DCN), ``train_esmm`` (BASE / ESMM /
                   MMOE), ``train_eges`` (BGE / GES / EGES), ``predict``
                   (scores a checkpoint), ``prepare_aliccp`` (raw Ali-CCP
-                  → npz splits) and the shared flags, logger and trainer
-                  bootstrap (``common``).
+                  → npz splits), ``prepare_criteo`` (raw Criteo → vocab
+                  and npz shards) and the shared flags, logger and
+                  trainer bootstrap (``common``).
 * ``data``      — ``SyntheticCTR``, ``SyntheticSequence``,
+                  ``SyntheticInterestDrift``, ``SyntheticMultiInterest``,
                   ``SyntheticMultiTask``, ``batch_iterator``, the
                   prefetcher, the ordered interleave, dedup plans, the
                   Criteo shards, the Amazon Books pipeline, Ali-CCP and
@@ -33,7 +37,7 @@ and checkpoints across meshes:
 * ``ops``       — stochastic rounding; the embedding lookups whose
                   backward is the hand-written CUDA sorted scatter-add
                   (K1), once, or twice with a dedup plan; flash attention,
-                  hand-written in CUDA (K2).
+                  hand-written in CUDA (K2), at any head dim.
 * ``embedding`` — the ``Embedding`` table, replicated or row-sharded over
                   the mesh's model axis with the psum and all-to-all
                   exchanges (``sharded``, whose backward is K1 on each
@@ -52,8 +56,9 @@ and checkpoints across meshes:
                   ``MultiTaskBase``, ``ESMM``, ``MMOE``, ``DeepWalk``,
                   ``GES``, ``EGES`` and the task wrappers.
 * ``retrieval`` — batch scoring for ``cli.predict``.
-* ``core``      — SR-Adam (with per-path update scales), streaming
-                  metrics, the ``Trainer`` of one rank (gradients averaged
+* ``core``      — SR-Adam, Adam, Adagrad and SGD (with per-path update
+                  scales), streaming metrics, profiling hooks, the
+                  ``Trainer`` of one rank (gradient accumulation, gradients averaged
                   over the data axis, collective checkpoints of whole
                   tables), early stopping and a prefetcher, the TensorBoard
                   event writer, the rank mesh (``mesh``) and the launch and

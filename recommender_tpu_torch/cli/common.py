@@ -14,10 +14,8 @@ under ``torchrun`` (its environment), or ``--distributed`` (the
 environment only). The mesh flags lay ``(data, model)`` over the ranks
 (``build_mesh``); each rank reads the rows of its data coordinate
 (``host_local_data``, ``host_batch_size``); only rank 0 logs unless
-``--log_all_hosts``.
-
-``--accum_steps`` is not ported yet: it is accepted and refused at any value
-but its default (``parse_args``), not silently ignored.
+``--log_all_hosts``. ``--accum_steps`` splits each step's batch into
+microbatches (``TrainConfig.accum_steps``).
 """
 from __future__ import annotations
 
@@ -30,12 +28,6 @@ from recommender_tpu_torch.core import distributed
 from recommender_tpu_torch.core.mesh import Mesh, MeshSpec, make_mesh
 from recommender_tpu_torch.core.train import TrainConfig, Trainer
 
-# flag → (default, the later slice that ports its machinery)
-UNPORTED_FLAGS = {
-    "accum_steps": (1, "gradient accumulation comes with the Trainer slice that ports it"),
-}
-
-
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--steps", type=int, default=1000)
@@ -43,7 +35,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--test_batch_size", type=int, default=4096)
     p.add_argument("--learning_rate", type=float, default=1e-3)
     p.add_argument("--accum_steps", type=int, default=1,
-                   help="not ported yet: any value but 1 is refused")
+                   help=">1 = split each batch into that many microbatches, summing their "
+                        "gradients in f32 before one optimizer update")
     p.add_argument("--eval_every", type=int, default=1000)
     p.add_argument("--eval_batches", type=int, default=0, help="0 = full pass")
     p.add_argument("--log_every", type=int, default=100)
@@ -85,17 +78,6 @@ def add_launch_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="initialize from torchrun's environment alone")
     return p
-
-
-def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, then exit with a message on any flag of ``UNPORTED_FLAGS``
-    that is not at its default."""
-    args = parser.parse_args(argv)
-    for name, (default, why) in UNPORTED_FLAGS.items():
-        value = getattr(args, name, default)
-        if value != default:
-            raise SystemExit(f"--{name} {value!r}: {why}; only the default ({default!r}) is accepted")
-    return args
 
 
 def resolve_device(args) -> torch.device:
@@ -157,6 +139,7 @@ def build_trainer(args, loss_fn, eval_fn=None, *, device, mesh: Mesh | None = No
         checkpoint_every=args.checkpoint_every,
         seed=args.seed,
         early_stop_patience=getattr(args, "early_stop_patience", 0),
+        accum_steps=getattr(args, "accum_steps", 1),
         lr_scales=getattr(args, "lr_scales", None) or None,
     )
     return Trainer(loss_fn, cfg, eval_fn, device=device, mesh=mesh)

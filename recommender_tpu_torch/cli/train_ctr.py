@@ -52,7 +52,6 @@ from recommender_tpu_torch.cli.common import (
     host_batch_size,
     host_local_data,
     make_logger,
-    parse_args,
     resolve_device,
     setup_distributed,
 )
@@ -131,7 +130,7 @@ def add_ctr_flags(p):
 
 def main(argv=None):
     p = add_ctr_flags(base_parser("CTR training (DLRM/DeepFM/DCN)"))
-    args = parse_args(p, argv)
+    args = p.parse_args(argv)
     setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)

@@ -28,7 +28,6 @@ from recommender_tpu_torch.cli.common import (
     host_batch_size,
     host_local_data,
     make_logger,
-    parse_args,
     resolve_device,
     setup_distributed,
 )
@@ -54,7 +53,7 @@ def main(argv=None):
     p.add_argument("--train_file", type=str, default="")
     p.add_argument("--test_file", type=str, default="")
     p.add_argument("--vocab_dir", type=str, default="")
-    args = parse_args(p, argv)
+    args = p.parse_args(argv)
     setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)

@@ -35,7 +35,6 @@ from recommender_tpu_torch.cli.common import (
     build_trainer,
     host_batch_size,
     make_logger,
-    parse_args,
     resolve_device,
     setup_distributed,
 )
@@ -104,7 +103,7 @@ def main(argv=None):
     p.add_argument("--shared_lr_scale", type=float, default=1.0,
                    help="GES/EGES: multiply the shared side tables' (cat, brand) updates "
                         "after Adam by this factor; 1.0 = reference semantics")
-    args = parse_args(p, argv)
+    args = p.parse_args(argv)
     if args.shared_lr_scale != 1.0 and args.model_type != "BGE":
         args.lr_scales = {
             "cat_embedding": args.shared_lr_scale,

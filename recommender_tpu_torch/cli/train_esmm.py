@@ -42,7 +42,6 @@ from recommender_tpu_torch.cli.common import (
     host_batch_size,
     host_local_data,
     make_logger,
-    parse_args,
     resolve_device,
     setup_distributed,
 )
@@ -90,7 +89,7 @@ def main(argv=None):
     p.add_argument("--replicate_below_mb", type=float, default=32.0,
                    help="planner: with --mesh_model > 1, tables under this size stay "
                         "replicated")
-    args = parse_args(p, argv)
+    args = p.parse_args(argv)
     if args.model_type == "BASE" and (args.checkpoint_dir or args.resume):
         raise SystemExit("--model_type BASE trains two models and writes no checkpoint; "
                          "drop --checkpoint_dir and --resume")

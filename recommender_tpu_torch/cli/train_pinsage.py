@@ -34,7 +34,6 @@ from recommender_tpu_torch.cli.common import (
     build_trainer,
     host_batch_size,
     make_logger,
-    parse_args,
     resolve_device,
     setup_distributed,
 )
@@ -101,7 +100,7 @@ def main(argv=None):
                         "into the bundle; cli/serve --probes N then serves "
                         "the clustered small-Q latency path")
     p.set_defaults(train_batch_size=32)
-    args = parse_args(p, argv)
+    args = p.parse_args(argv)
     setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)

@@ -30,7 +30,6 @@ from recommender_tpu_torch.cli.common import (
     build_trainer,
     host_batch_size,
     make_logger,
-    parse_args,
     resolve_device,
     setup_distributed,
 )
@@ -89,7 +88,7 @@ def main(argv=None):
     p.add_argument("--export_int8", action="store_true")
     p.add_argument("--export_ivf_clusters", type=int, default=0)
     p.set_defaults(train_batch_size=1024)
-    args = parse_args(p, argv)
+    args = p.parse_args(argv)
     setup_distributed(args)  # before any device use: it picks this rank's card
     device = resolve_device(args)
     log = make_logger(args)

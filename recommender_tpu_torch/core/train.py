@@ -3,7 +3,8 @@ guard.
 
 Port of ``recommender_tpu/core/train.py``. A step is the eager PyTorch
 sequence forward → backward (the embedding gradient through the sorted
-scatter-add kernel) → ``AdamSR`` step, which writes the params in place.
+scatter-add kernel) → optimizer step (``core.optim``; ``AdamSR`` by
+default), which writes the params in place.
 
 Protocol (``models.tasks``): ``loss_fn(batch, train) -> (per_example_loss
 [B], aux dict)`` and ``eval_fn(batch) -> (scores [B], labels [B])``, both
@@ -38,14 +39,23 @@ checkpoint is written at each improvement only. ``fit`` reads the stream
 through a background ``data.pipeline.Prefetcher`` (``prefetch`` batches
 ahead; the copy to the device stays on the calling thread).
 ``lr_scales`` ``{path-pattern: multiplier}`` scales matching params'
-updates after the optimizer (``core.optim.path_scales``). Gradient
-accumulation belongs to a later slice; the split step is a TPU layout
-workaround and has no counterpart.
+updates after the optimizer (``core.optim.path_scales``).
+``optimizer`` ("adam", "adagrad", "sgd") and ``stochastic_round`` (None:
+on where the model has a low-precision float param, resolved at
+``init_state``) pick the optimizer as JAX's ``make_optimizer`` does
+(``core.optim.make_optimizer``). ``accum_steps`` A > 1 splits every batch
+into A equal microbatches, runs forward and backward on each, sums their
+gradients in f32 (a bf16 table's too: each microbatch's ``.grad`` is taken
+out into an f32 sum and cleared, and the sums go to the optimizer
+explicitly), divides by A and makes one optimizer update; the loss and aux
+metrics are the microbatches' means. BatchNorm's buffers update at each
+microbatch's forward, as JAX's ``model_state`` through its ``lax.scan``.
+The split step is a TPU layout workaround and has no counterpart.
 
 Checkpoints (``save``, ``restore``, ``TrainConfig.checkpoint_dir``): one
 ``torch.save`` file per step number, ``step_<number>.pt``, holding the
-model's ``state_dict`` (params and BatchNorm buffers), ``AdamSR``'s moments
-and count, and the step. Every table is whole in it: ``save`` is collective,
+model's ``state_dict`` (params and BatchNorm buffers), the optimizer's
+state (``AdamSR``'s moments and count) and the step. Every table is whole in it: ``save`` is collective,
 gathers each row-sharded table and its moments over the model group in
 chunks into rank 0's host memory, and rank 0 writes; ``restore`` maps the
 file and has every rank copy its rows of the whole tables, so a checkpoint
@@ -80,7 +90,12 @@ from recommender_tpu_torch.core.metrics import (
     mean_from_state,
     mean_update,
 )
-from recommender_tpu_torch.core.optim import AdamSR, path_scales
+from recommender_tpu_torch.core.optim import (
+    OPTIMIZERS,
+    Optimizer,
+    has_low_precision_leaf,
+    make_optimizer,
+)
 from recommender_tpu_torch.data.pipeline import Prefetcher
 from recommender_tpu_torch.nn.losses import binary_cross_entropy
 from recommender_tpu_torch.ops.rounding import fold_in, prng_key
@@ -94,6 +109,7 @@ from recommender_tpu_torch.parallel.partitioning import (
 @dataclasses.dataclass
 class TrainConfig:
     learning_rate: float | Callable[[int], float] = 1e-3
+    optimizer: str = "adam"  # "adam", "adagrad" or "sgd"
     log_every: int = 100
     eval_every: int = 1000
     seed: int = 0
@@ -113,6 +129,14 @@ class TrainConfig:
     # pattern matches whole '/'-separated path components: 'cat_embedding'
     # matches 'cat_embedding.embedding', not 'concat_embedding.embedding'.
     lr_scales: Optional[dict] = None
+    # Gradient accumulation: > 1 splits each batch into that many equal
+    # microbatches and sums their gradients in f32 before ONE optimizer
+    # update; peak activation memory drops with the microbatch.
+    accum_steps: int = 1
+    # Stochastic rounding of low-precision params' writes (and, with
+    # optimizer "adam", of Adam's moments: AdamSR). None = on iff the
+    # model has a low-precision float param, resolved at init_state.
+    stochastic_round: Optional[bool] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # 0 = only on demand
     max_to_keep: int = 3
@@ -122,7 +146,7 @@ class TrainConfig:
 class TrainState:
     step: int
     model: nn.Module
-    optimizer: AdamSR
+    optimizer: Optimizer
 
 
 class TrainingDiverged(RuntimeError):
@@ -150,17 +174,22 @@ class Trainer:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.mesh = mesh if mesh is not None else make_mesh()
+        if cfg.optimizer not in OPTIMIZERS:
+            raise ValueError(cfg.optimizer)
         self._sr_key = fold_in(prng_key(cfg.seed), 0x5EED)
+        # cfg.stochastic_round, resolved by init_state
+        self.stochastic_round = bool(cfg.stochastic_round)
 
     # ------------------------------------------------------------------- init
     def init_state(self, init_model_fn: Callable[[], nn.Module]) -> TrainState:
         """``init_model_fn() -> model`` on this trainer's device.
 
-        Builds ``AdamSR`` over the params in JAX's flatten order, so that
-        each param's rounding keys match the JAX package's. Stochastic
-        rounding applies to the low-precision params — the JAX Trainer's
-        automatic ``stochastic_round`` mode. ``cfg.lr_scales`` gives each
-        param its update multiplier by its name. A table row-sharded over
+        Builds the optimizer (``core.optim.make_optimizer``) over the
+        params in JAX's flatten order, so that each param's rounding keys
+        match the JAX package's. ``cfg.stochastic_round`` None resolves to
+        whether the model has a low-precision float param, as in JAX.
+        ``cfg.lr_scales`` gives each param its update multiplier by its
+        name. A table row-sharded over
         ``model`` must be sharded on this trainer's mesh, and rounds with
         the whole table's noise (``parallel.partitioning``); on a data axis
         wider than 1 every table must be built on this trainer's mesh, whose
@@ -179,14 +208,11 @@ class Trainer:
                 raise ValueError(
                     f"{name or type(module).__name__} is built on mesh {mesh}, the trainer's "
                     f"is {self.mesh}; build the model with the trainer's mesh=")
-        mdt = self.cfg.moment_dtype
-        optimizer = AdamSR(
-            [p for _, p in named],
-            lr=self.cfg.learning_rate,
-            seed=self.cfg.seed,
-            moment_dtype=None if mdt is None else getattr(torch, mdt),
-            scales=path_scales([n for n, _ in named], self.cfg.lr_scales)
-            if self.cfg.lr_scales else None,
+        sr = self.cfg.stochastic_round
+        self.stochastic_round = (has_low_precision_leaf(p for _, p in named) if sr is None
+                                 else bool(sr))
+        optimizer = make_optimizer(
+            self.cfg, named, stochastic=self.stochastic_round,
             offsets=element_offsets(model, [n for n, _ in named])
             if row_sharded_params(model) else None,
         )
@@ -194,36 +220,89 @@ class Trainer:
 
     # ------------------------------------------------------------------- step
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        """Forward, backward, optimizer and param write. Metrics stay device
-        tensors until a log point reads them."""
-        per_ex, aux = self.loss_fn(batch, True)
-        loss = torch.mean(per_ex)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh.data > 1:
+        """Forward, backward, optimizer and param write; with
+        ``cfg.accum_steps`` > 1, over that many microbatches. Metrics stay
+        device tensors until a log point reads them."""
+        accum = max(int(self.cfg.accum_steps or 1), 1)
+        params = state.optimizer.param_groups[0]["params"]
+        if accum == 1:
+            per_ex, aux = self.loss_fn(batch, True)
+            loss = torch.mean(per_ex)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            # a param that took no part in the loss has a zero gradient, as in JAX
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            metrics = dict(aux)
+            metrics["loss"] = loss.detach()
+        else:
+            grads, metrics = self._accumulate(state, batch, accum, params)
+        if self.mesh.data > 1:  # once a step, on the (accumulated) gradients
             gathered = data_gathered_params(state.model)
-            self._average_grads([p for n, p in jax_leaf_order(state.model) if n not in gathered])
-        state.optimizer.step(fold_in(self._sr_key, state.step))
-        metrics = dict(aux)
-        metrics["loss"] = loss.detach()
+            own = {id(p) for n, p in jax_leaf_order(state.model) if n not in gathered}
+            mine = [i for i, p in enumerate(params) if id(p) in own]
+            for i, g in zip(mine, self._average_grads([grads[i] for i in mine])):
+                grads[i] = g
+                if accum == 1:  # the gradient the step took, where the caller looks
+                    params[i].grad = g
+        state.optimizer.step(fold_in(self._sr_key, state.step), grads=grads)
         if self.mesh.data > 1:
             metrics = self._average_metrics(metrics)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
-    def _average_grads(self, params):
-        """Each param's gradient (zeros where it took no part) averaged over
-        the data group, in one f32 all-reduce, and written back in the
-        gradient's dtype."""
-        if not params:
-            return
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    def _accumulate(self, state: TrainState, batch: dict, accum: int, params):
+        """The f32 mean of the gradients of ``accum`` equal microbatches
+        (rows [i B/A, (i + 1) B/A) of every leaf), and the microbatches'
+        mean loss and aux metrics. Each microbatch's ``.grad`` goes into an
+        f32 sum and is cleared, so that a bf16 param's gradient is not
+        summed in bf16 (which ``.grad`` would do, in the param's dtype)."""
+        # Host dedup plans index the whole batch's flat id stream: sliced
+        # into microbatches they would point past the microbatch.
+        plans = [k for k in batch if k.endswith("_dedup")]
+        if plans:
+            raise ValueError(
+                f"dedup plan keys {plans} are incompatible with "
+                f"accum_steps={accum} (plans index the whole-batch id "
+                "stream); drop the plans or set accum_steps=1"
+            )
+        for leaf in batch.values():
+            b = leaf.shape[0]
+            if b % accum:
+                raise ValueError(f"accum_steps={accum} must divide the batch size {b}")
+        sums = [torch.zeros(p.shape, dtype=torch.promote_types(p.dtype, torch.float32),
+                            device=p.device) for p in params]
+        losses, auxes = [], []
+        for i in range(accum):
+            micro = {k: v[i * (v.shape[0] // accum):(i + 1) * (v.shape[0] // accum)]
+                     for k, v in batch.items()}
+            per_ex, aux = self.loss_fn(micro, True)
+            loss = torch.mean(per_ex)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            for acc, p in zip(sums, params):
+                if p.grad is not None:
+                    acc += p.grad.to(acc.dtype)
+                    p.grad = None
+            losses.append(loss.detach())
+            auxes.append(aux)
+        metrics = {k: torch.mean(torch.stack([torch.as_tensor(a[k]).to(torch.float32)
+                                              for a in auxes]))
+                   for k in auxes[0]}
+        metrics["loss"] = torch.mean(torch.stack(losses))
+        return [acc / accum for acc in sums], metrics
+
+    def _average_grads(self, grads: list) -> list:
+        """The gradients averaged over the data group, in one f32
+        all-reduce, each in its own dtype."""
+        if not grads:
+            return []
         flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
         distributed.all_reduce(flat, group=self.mesh.data_group)
         flat /= self.mesh.data
-        start = 0
-        for p, g in zip(params, grads):
-            p.grad = flat[start:start + g.numel()].view(g.shape).to(g.dtype)
+        out, start = [], 0
+        for g in grads:
+            out.append(flat[start:start + g.numel()].view(g.shape).to(g.dtype))
             start += g.numel()
+        return out
 
     def _average_metrics(self, metrics: dict) -> dict:
         """The step's scalar metrics averaged over the data group in one
@@ -415,7 +494,7 @@ class Trainer:
             opt = state.optimizer.state_dict()
             for name, i, _ in self._sharded_entries(state):
                 model_sd[name] = self._whole_rows(model_sd[name])
-                for which in ("mu", "nu"):
+                for which in state.optimizer.slots:
                     opt[which][i] = self._whole_rows(opt[which][i])
         if write:
             os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
@@ -469,7 +548,7 @@ class Trainer:
                 raise ValueError(f"{name}: the checkpoint holds {model_sd[name].shape[0]} rows, "
                                  f"the table has {vocab}")
             model_sd[name] = model_sd[name][lo:lo + rows]
-            for which in ("mu", "nu"):
+            for which in state_like.optimizer.slots:
                 opt[which][i] = opt[which][i][lo:lo + rows]
         state_like.model.load_state_dict(model_sd, strict=True)
         state_like.optimizer.load_state_dict(opt)

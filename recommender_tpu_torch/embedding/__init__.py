@@ -5,10 +5,11 @@ from recommender_tpu_torch.embedding.sharded import (
     sharded_lookup,
     sort_coalesced_lookup,
 )
-from recommender_tpu_torch.embedding.table import Embedding
+from recommender_tpu_torch.embedding.table import Embedding, EmbeddingSpec
 
 __all__ = [
     "Embedding",
+    "EmbeddingSpec",
     "TableStats",
     "all_to_all_lookup",
     "plan_tables",

@@ -1,6 +1,8 @@
 """Embedding tables.
 
-Port of ``recommender_tpu/embedding/table.py::Embedding``. The table is one
+Port of ``recommender_tpu/embedding/table.py``: ``EmbeddingSpec``, the
+declarative record of a table, and ``bag_combine``, the weighted pooling of
+a bag of vectors, are copied. In ``Embedding`` the table is one
 parameter named ``embedding`` (the flax param name) in ``param_dtype`` (f32
 or bf16). A replicated lookup goes through
 ``ops.embedding_kernels.embedding_lookup``, whose backward is the sorted
@@ -38,6 +40,7 @@ table, and no device holds more than its shard and one chunk.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -56,6 +59,17 @@ from recommender_tpu_torch.ops.embedding_kernels import (
 )
 
 LOOKUP_MODES = ("gspmd", "psum", "a2a")
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingSpec:
+    """Declarative spec used by planners/checkpointing."""
+
+    name: str
+    vocab_size: int
+    features: int
+    combiner: Optional[str] = None  # None | 'sum' | 'mean'
+    sharded: bool = False
 INIT_CHUNK_ELEMENTS = 1 << 22  # 16 MiB of f32 draws at a time
 
 
@@ -148,3 +162,17 @@ class Embedding(nn.Module):
                 self.embedding, ids, dedup_plan["perm"], dedup_plan["slot"], dedup_plan["uniq"]
             )
         return embedding_lookup(self.embedding, ids)
+
+
+def bag_combine(emb: torch.Tensor, weights: torch.Tensor, combiner: str) -> torch.Tensor:
+    """Combine a bag of embeddings [..., K, D] with weights [..., K] → [..., D].
+
+    ``mean`` divides by the weight sum clipped to >= 1 (multi-hot pooling).
+    """
+    w = weights.to(emb.dtype)[..., None]
+    s = torch.sum(emb * w, dim=-2)
+    if combiner == "sum":
+        return s
+    if combiner == "mean":
+        return s / torch.clamp(torch.sum(w, dim=-2), min=1.0)
+    raise ValueError(f"unknown combiner {combiner}")

@@ -24,7 +24,7 @@ from torch import nn
 
 from recommender_tpu_torch.core import distributed
 from recommender_tpu_torch.core.metrics import AUCState, auc_from_state, auc_update, exact_auc
-from recommender_tpu_torch.nn.losses import bce_with_logits, binary_cross_entropy
+from recommender_tpu_torch.nn.losses import binary_cross_entropy, sampled_sigmoid_ce
 
 
 def pop_diagnostics(model: nn.Module, aux: dict) -> dict:
@@ -158,8 +158,7 @@ def make_skipgram_task(model: nn.Module) -> tuple[Callable, Callable]:
     def loss_fn(batch, train):
         model.train(train)
         logits = model(batch)
-        per_ex = torch.mean(bce_with_logits(logits, batch["label"]), dim=-1)
-        return per_ex, pop_diagnostics(model, {})
+        return sampled_sigmoid_ce(logits, batch["label"]), pop_diagnostics(model, {})
 
     def eval_fn(batch):
         model.eval()

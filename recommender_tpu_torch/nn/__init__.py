@@ -5,6 +5,7 @@ from recommender_tpu_torch.nn.losses import (
     binary_cross_entropy,
     margin_loss,
     masked_auxiliary_loss,
+    sampled_sigmoid_ce,
 )
 from recommender_tpu_torch.nn.mlp import MLP, BatchNorm
 from recommender_tpu_torch.nn.moe import ExpertBank, MMOEGate
@@ -39,4 +40,5 @@ __all__ = [
     "margin_loss",
     "masked_auxiliary_loss",
     "masked_mean_pool",
+    "sampled_sigmoid_ce",
 ]

@@ -1,5 +1,6 @@
-"""Losses: port of ``recommender_tpu/nn/losses.py`` (the BCE pair, PinSage's
-margin loss and DIEN's masked auxiliary loss).
+"""Losses: port of ``recommender_tpu/nn/losses.py`` (the BCE pair, the
+sampled-softmax mean, PinSage's margin loss and DIEN's masked auxiliary
+loss).
 
 All return **per-example** losses, so callers control batch scaling.
 """
@@ -23,6 +24,11 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.clamp(logits, min=0.0) - logits * labels + torch.log1p(
         torch.exp(-torch.abs(logits))
     )
+
+
+def sampled_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid-CE over the candidate axis: [B, 1+k] logits/labels → [B]."""
+    return torch.mean(bce_with_logits(logits, labels), dim=-1)
 
 
 def margin_loss(

@@ -1,5 +1,5 @@
-// Flash attention forward with a segment-id mask, for head dims up to 64,
-// on the tensor cores at f32 accuracy.
+// Flash attention forward with a segment-id mask, at any head dim, on the
+// tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernel that recommender_tpu/nn/transformer.py::_flash_mha
 // reaches through jax.experimental.pallas.ops.tpu.flash_attention:
@@ -77,6 +77,29 @@
 //    aligned). The long route double-buffers its K and V tiles with
 //    cp.async (16 bytes a copy where Dh % 4 == 0; no index divided by Dh),
 //    so the next tile's copy runs under this one's products.
+// 5. Head dims above 64 ("wide", flash_mma.cuh): Q no longer fits in
+//    registers beside O, and the long route's double-buffered K and V tiles
+//    would take 135 KB a block at Dh 128 (over 227 KB at 256). So a wide Dh
+//    runs in chunks of 64 columns. The long route gives each block one
+//    chunk of O (grid y): for each tile of 64 keys it copies the chunks of
+//    Q and K one at a time (its own chunk last, with V's), adds the
+//    scores up in registers, then runs the online softmax and O += P V on
+//    its chunk, one copy in flight a block (52 KB, so four blocks an SM
+//    overlap one another's copies). The fused route keeps its block and
+//    its shared memory: each warp walks the heads and, within each, O's
+//    chunks, the scores read over every column of Q and K from shared
+//    memory, and writes O straight to device memory. Each chunk computes
+//    the scores again, 1.5x the products per output column at Dh 128.
+//    Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase
+//    k2): the L1001 probe at Dh 128, H 4: 10.9 ms alone, 10% of its 1.09 ms
+//    (operations) bound; BST's rows with one head of Dh 128: 0.62 ms fused,
+//    10% of its 0.064 ms (bytes) bound, where the long kernel on the same
+//    inputs takes 0.43 (the fused block's 160 KB holds one block an SM);
+//    Dh 72: 0.25 ms fused, 14%; Dh 256, B 256, H 2: 0.70 ms long, 9%.
+//    nvcc -Xptxas -v (chip_smoke.py --ptxas, the same card): the wide long
+//    kernel 132 registers, the wide fused kernel 121, no spills; the
+//    narrow long kernel at DP 64 168 registers with 60 bytes of spill
+//    stores (its limit of three blocks an SM).
 // Each output element is written once, by one thread, with no atomics: every
 // launch is bitwise deterministic.
 //
@@ -129,36 +152,29 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The 16 query rows a warp owns, of one head: Q times scale log2 e as A
-// fragments, the rows' seg and liveness, and the online softmax of the
-// lane's rows g and g + 8: the running max of the base-2 scores, the lane's
-// share of the row sum (its columns 2t, 2t + 1 of every tile; the quad adds
-// its four shares at the end) and O, not yet divided by the sum.
+// The online softmax of the 16 query rows a warp owns, of one head: the
+// rows' seg and liveness, and for the lane's rows g and g + 8 the running
+// max of the base-2 scores, the lane's share of the row sum (its columns 2t,
+// 2t + 1 of every tile; the quad adds its four shares at the end) and O (DP
+// columns of it), not yet divided by the sum.
 template <int DP>
-struct Query {
-  ARows<DP <= 32> q[DP / 8];
-  int seg[2];
-  bool ok[2];
+struct Online : RowSeg {
   float m[2], l[2];
   Acc<DP> o;
 
-  __device__ __forceinline__ void load(const View& qv, const int* segs, int r0, int n,
-                                       float c2, Lane ln) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk) q[kk].set(qv, r0, 8 * kk, ln, c2);
+  __device__ __forceinline__ void init(const int* segs, int r0, int n, Lane ln) {
+    set(segs, r0, n, ln);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = r0 + ln.g + 8 * r;
-      ok[r] = row < n;
-      seg[r] = ok[r] ? segs[row] : 0;
       m[r] = -INFINITY;
       l[r] = 0.f;
     }
     zero<DP>(o);
   }
 
-  // O / l into dst[row * stride + col] and the natural-log lse into
-  // lse_dst[row], for rows < n and columns < Dh (rows r0 .. r0 + 15).
+  // O / l into dst[row * stride + col] and, unless lse_dst is null, the
+  // natural-log lse into lse_dst[row], for rows < n and columns < Dh (rows
+  // r0 .. r0 + 15).
   __device__ __forceinline__ void store(float* dst, int stride, float* lse_dst, int r0, int n,
                                         int Dh, Lane ln) {
     float inv[2];
@@ -168,7 +184,8 @@ struct Query {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / l[r];  // rows past n have nothing to store; their l may be 0
       const int row = r0 + ln.g + 8 * r;
-      if (ln.t == 0 && row < n) lse_dst[row] = (m[r] + log2f(l[r])) * kLn2;
+      if (lse_dst != nullptr && ln.t == 0 && row < n)
+        lse_dst[row] = (m[r] + log2f(l[r])) * kLn2;
     }
 #pragma unroll
     for (int nn = 0; nn < DP / 8; ++nn)
@@ -177,6 +194,19 @@ struct Query {
         const int row = r0 + ln.g + 8 * (e >> 1), col = 8 * nn + 2 * ln.t + (e & 1);
         if (row < n && col < Dh) dst[row * stride + col] = o[nn][e] * inv[e >> 1];
       }
+  }
+};
+
+// The same rows with Q times scale log2 e as A fragments in registers (Dh <= 64).
+template <int DP>
+struct Query : Online<DP> {
+  ARows<DP <= 32> q[DP / 8];
+
+  __device__ __forceinline__ void load(const View& qv, const int* segs, int r0, int n,
+                                       float c2, Lane ln) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) q[kk].set(qv, r0, 8 * kk, ln, c2);
+    this->init(segs, r0, n, ln);
   }
 };
 
@@ -189,8 +219,7 @@ struct Mask {
   uint32_t on, live;
 };
 
-template <int DP>
-__device__ __forceinline__ Mask block_mask(const Query<DP>& w, const int* seg, int n, int k0,
+__device__ __forceinline__ Mask block_mask(const RowSeg& w, const int* seg, int n, int k0,
                                            Lane ln) {
   Mask mk{0u, 0u};
 #pragma unroll
@@ -211,40 +240,22 @@ __device__ __forceinline__ Mask block_mask(const Query<DP>& w, const int* seg, i
   return mk;
 }
 
-// One softmax block of keys: S of the warp's rows against its live tiles
-// (base 2: Q carries scale log2 e); the block's row max; O and the row sum
-// rescaled once if it rose; then P = 2^(S - m) and O += P V. kp points at
-// K(k0 + g, t) of the lane's head, vp at V(k0 + 2t, g); rows are `stride`
-// floats apart, and every row below the block's last tile may be read.
-template <int DP, bool kTail4>
-__device__ __forceinline__ void attend(Query<DP>& w, const float* kp, const float* vp,
-                                       int stride, Mask mk) {
-  if (!mk.live) return;
-  float s[kBlockTiles][4];
+// The second half of a softmax block of keys, from its base-2 scores s
+// (-inf where the mask hides a pair): the block's row max; O and the row sum
+// rescaled once if it rose; then P = 2^(S - m) and O += P V over O's first
+// nw groups of 8 columns. vp points at V(k0 + 2t, g) of the lane's head;
+// rows are `stride` floats apart, and every row below the block's last live
+// tile may be read.
+template <int DP>
+__device__ __forceinline__ void softmax_pv(Online<DP>& w, const float (&s)[kBlockTiles][4],
+                                           const float* vp, int stride, Mask mk,
+                                           int nw = DP / 8) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int jt = 0; jt < kBlockTiles; ++jt) {
+  for (int jt = 0; jt < kBlockTiles; ++jt)
+    if (mk.live >> jt & 1)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[jt][e] = -INFINITY;
-    if (!(mk.live >> jt & 1)) continue;
-    const float* kr = kp + 8 * jt * stride;
-    Acc3 a;
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk) {
-      const FragB b = split_b(kr[8 * kk], kr[8 * kk + 4]);
-      if (kTail4 && kk == DP / 8 - 1)
-        a.add_k4(w.q[kk].get(), b);
-      else
-        a.add(w.q[kk].get(), b);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (mk.on >> (4 * jt + e) & 1) {
-        s[jt][e] = a.sum(e);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[jt][e]);
-      }
-    }
-  }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[jt][e]);
   float base[2];  // the max each exponent is taken from
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -275,8 +286,61 @@ __device__ __forceinline__ void attend(Query<DP>& w, const float* kp, const floa
     const float* vr = vp + 8 * jt * stride;
 #pragma unroll
     for (int nn = 0; nn < DP / 8; ++nn)
-      mma3(w.o[nn], pa, split_b(vr[8 * nn], vr[stride + 8 * nn]));
+      if (nn < nw) mma3(w.o[nn], pa, split_b(vr[8 * nn], vr[stride + 8 * nn]));
   }
+}
+
+// One softmax block of keys: S of the warp's rows against its live tiles
+// (base 2: Q carries scale log2 e), then softmax_pv. kp points at K(k0 + g,
+// t) of the lane's head, vp at V(k0 + 2t, g).
+template <int DP, bool kTail4>
+__device__ __forceinline__ void attend(Query<DP>& w, const float* kp, const float* vp,
+                                       int stride, Mask mk) {
+  if (!mk.live) return;
+  float s[kBlockTiles][4];
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[jt][e] = -INFINITY;
+    if (!(mk.live >> jt & 1)) continue;
+    const float* kr = kp + 8 * jt * stride;
+    Acc3 a;
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const FragB b = split_b(kr[8 * kk], kr[8 * kk + 4]);
+      if (kTail4 && kk == DP / 8 - 1)
+        a.add_k4(w.q[kk].get(), b);
+      else
+        a.add(w.q[kk].get(), b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (mk.on >> (4 * jt + e) & 1) s[jt][e] = a.sum(e);
+  }
+  softmax_pv<DP>(w, s, vp, stride, mk);
+}
+
+// Wide head dims: acc[jt] += c2 Q K^T over ng groups of 8 columns, Q the
+// warp's 16 rows from r0 (A fragments read from shared memory, split once
+// for the 8 tiles), K the 8 rows at 8 jt of k, for the live tiles jt.
+__device__ __forceinline__ void wide_scores(float (&acc)[kBlockTiles][4], const View& q,
+                                            const View& k, int r0, int ng, float c2,
+                                            uint32_t live, Lane ln) {
+  for (int kk = 0; kk < ng; ++kk) {
+    const FragA a = load_a(q, r0, 8 * kk, ln, c2);
+#pragma unroll
+    for (int jt = 0; jt < kBlockTiles; ++jt)
+      if (live >> jt & 1) mma3(acc[jt], a, load_bt(k, 8 * jt, 8 * kk, ln));
+  }
+}
+
+// The scores of a block from the sums of wide_scores: -inf where mk hides a pair.
+__device__ __forceinline__ void masked_scores(float (&s)[kBlockTiles][4],
+                                              const float (&acc)[kBlockTiles][4], Mask mk) {
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[jt][e] = mk.on >> (4 * jt + e) & 1 ? acc[jt][e] : -INFINITY;
 }
 
 // n floats from shared memory to device memory, 16 bytes a store where vec.
@@ -293,8 +357,12 @@ __device__ __forceinline__ void store_span(float* __restrict__ dst, const float*
 // ------------------------------------------------------------ fused route
 // One block per batch row b, one warp per 16 queries (L rounded up to 16).
 // The warp takes the segment mask of its queries once, then walks the heads,
-// and writes each head's O over its own q rows of that head.
-template <int DP, bool kTail4>
+// and writes each head's O over its own q rows of that head. kWide (Dh > 64,
+// DP = kC): the warp walks the heads and, within each, O's chunks of kC
+// columns; the scores take every column of Q and K from shared memory, and
+// O goes straight to device memory, since Q stays needed until the head's
+// last chunk.
+template <int DP, bool kTail4, bool kWide = false>
 __global__ void __launch_bounds__(kFusedMaxL / 16 * 32)
 flash_fwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const int* __restrict__ seg,
@@ -334,6 +402,37 @@ flash_fwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Lane ln = lane();
   const int r0 = 16 * (tid >> 5);
   const float c2 = scale * kLog2e;
+  if constexpr (kWide) {
+    Online<DP> w;
+    w.init(seg_s, r0, L, ln);
+    Mask mk[kBlocks];
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i)
+      mk[i] = i * kBlockKeys < L ? block_mask(w, seg_s, L, i * kBlockKeys, ln) : Mask{0u, 0u};
+    const int ng = (Dh + 7) / 8;
+    for (int h = 0; h < H; ++h) {
+      const View qv{qs + h * Dh, HD, L, Dh};
+      for (int c0 = 0; c0 < Dh; c0 += kC) {
+        w.init(seg_s, r0, L, ln);
+#pragma unroll
+        for (int i = 0; i < kBlocks; ++i) {
+          if (!mk[i].live) continue;
+          const int k0 = i * kBlockKeys;
+          float acc[kBlockTiles][4] = {}, s[kBlockTiles][4];
+          wide_scores(acc, qv, View{ks + h * Dh + k0 * HD, HD, L - k0, Dh}, r0, ng, c2,
+                      mk[i].live, ln);
+          masked_scores(s, acc, mk[i]);
+          softmax_pv<DP>(w, s, vs + h * Dh + c0 + (k0 + 2 * ln.t) * HD + ln.g, HD, mk[i],
+                         (min(kC, Dh - c0) + 7) / 8);
+        }
+        w.store(o + base + h * Dh + c0, HD, c0 == 0 ? lse_s + h * L : nullptr, r0, L,
+                min(kC, Dh - c0), ln);
+      }
+    }
+    __syncthreads();
+    store_span(lse + (int64_t)b * H * L, lse_s, H * L, vec_lse);
+    return;
+  }
   Query<DP> w;
   w.load(View{qs, HD, L, Dh}, seg_s, r0, L, c2, ln);  // the seg of the warp's rows
   Mask mk[kBlocks];
@@ -442,6 +541,83 @@ flash_fwd_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ wide long route
+// Shared memory of a wide long-route block: chunk tiles of Q, K and V
+// ([kTile][kCs] each) and seg [kTile].
+__host__ __device__ constexpr int64_t wide_long_bytes() { return 4 * (3LL * kCTile + kTile); }
+
+// O's chunk blockIdx.y (kC columns) and, from chunk 0's blocks, lse of the
+// block's 64 queries of one head. For each tile of 64 keys the block takes
+// the chunks of Q and K one by one, adding up the scores of its warps in
+// registers, chunk c last and with it V's chunk c; then the online softmax
+// and O += P V on that chunk. One copy at a time: the three blocks an SM
+// holds overlap one another's copies.
+__global__ void __launch_bounds__(kLongThreads, 3)
+flash_fwd_wide_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const int* __restrict__ seg,
+                           float* __restrict__ o, float* __restrict__ lse, int L, int H,
+                           int Dh, float scale, bool vec) {
+  extern __shared__ float4 smem[];
+  float* qt = reinterpret_cast<float*>(smem);
+  float* kt = qt + kCTile;
+  float* vt = kt + kCTile;
+  int* seg_s = reinterpret_cast<int*>(vt + kCTile);
+  const Where w = where(L, H, Dh);
+  const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
+  const int qn = min(kTile, L - w.row0), nt = (L + kTile - 1) / kTile;
+  const int nd = chunks(Dh), c = blockIdx.y, c0 = c * kC, wc = min(kC, Dh - c0);
+  const int64_t seg_b = (int64_t)w.b * L;
+  const Lane ln = lane();
+  const float c2 = scale * kLog2e;
+
+  zero_smem(smem, (int)(wide_long_bytes() / 16), tid, kLongThreads);
+  Online<kC> st;
+  st.init(seg + seg_b + w.row0, r0, qn, ln);
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * kTile, n = min(kTile, L - k0);
+    float acc[kBlockTiles][4] = {};
+    Mask mk{0u, 0u};
+    for (int i = 0; i < nd; ++i) {
+      const int d0 = chunk_at(i, c, nd) * kC, wd = min(kC, Dh - d0);
+      __syncthreads();  // every warp is done with the tiles
+      load_chunk_async(qt, q, w.base, d0, w.row0, qn, HD, wd, vec, tid);
+      load_chunk_async(kt, k, w.base, d0, k0, n, HD, wd, vec, tid);
+      if (i == 0)
+        for (int e = tid; e < n; e += kLongThreads) cp_async4(seg_s + e, seg + seg_b + k0 + e);
+      if (i == nd - 1) load_chunk_async(vt, v, w.base, c0, k0, n, HD, wc, vec, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i == 0) mk = block_mask(st, seg_s, n, 0, ln);
+      if (mk.live)
+        wide_scores(acc, View{qt, kCs, qn, wd}, View{kt, kCs, n, wd}, r0, (wd + 7) / 8, c2,
+                    mk.live, ln);
+    }
+    if (mk.live) {
+      float s[kBlockTiles][4];
+      masked_scores(s, acc, mk);
+      softmax_pv<kC>(st, s, vt + 2 * ln.t * kCs + ln.g, kCs, mk, (wc + 7) / 8);
+    }
+  }
+  __syncthreads();
+  st.store(qt, kCs, c == 0 ? lse + w.rows + w.row0 : nullptr, r0, qn, wc, ln);
+  __syncthreads();
+  float* dst = o + w.base + c0;
+  if (vec) {
+    const int cpr = wc >> 2;
+    for (int e = tid; e < qn * cpr; e += kLongThreads) {
+      const int r = e / cpr, col = (e - r * cpr) << 2;
+      *reinterpret_cast<float4*>(dst + (int64_t)(w.row0 + r) * HD + col) =
+          *reinterpret_cast<const float4*>(qt + r * kCs + col);
+    }
+  } else {
+    for (int e = tid; e < qn * wc; e += kLongThreads) {
+      const int r = e / wc, col = e - r * wc;
+      dst[(int64_t)(w.row0 + r) * HD + col] = qt[r * kCs + col];
+    }
+  }
+}
+
 // ------------------------------------------------------------ host side
 struct Args {
   const float *q, *k, *v;
@@ -468,6 +644,24 @@ struct Launch {
     const unsigned grid = (unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H);
     launch_kernel(flash_fwd_long_kernel<DP, kTail4>, grid, kLongThreads, long_bytes<DP>(), s,
                   a.q, a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale,
+                  vec4 && a.Dh % 4 == 0);
+  }
+
+  // Dh > 64, in chunks of kC = DP columns
+  static void run_wide(const Which& which, const Args& a, const cudaStream_t& s) {
+    const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o);
+    if (which == kFused) {
+      const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
+      const bool vec_lse = aligned16(a.lse) && (a.H * a.L) % 4 == 0;
+      launch_kernel(flash_fwd_fused_kernel<DP, false, true>, (unsigned)a.B,
+                    (a.L + 15) / 16 * 32, fwd_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v,
+                    a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale, vec, vec_lse);
+      return;
+    }
+    const dim3 grid((unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H),
+                    (unsigned)chunks(a.Dh));
+    launch_kernel(flash_fwd_wide_long_kernel, grid, kLongThreads, wide_long_bytes(), s, a.q,
+                  a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale,
                   vec4 && a.Dh % 4 == 0);
   }
 };

@@ -1,5 +1,5 @@
-// Flash attention backward with a segment-id mask, for head dims up to 64,
-// on the tensor cores at f32 accuracy.
+// Flash attention backward with a segment-id mask, at any head dim, on the
+// tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernels _flash_attention_bwd_dkv and _flash_attention_bwd_dq
 // of jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attention.py (:941,
@@ -61,6 +61,25 @@
 //    16 bytes a copy where Dh % 4 == 0.
 // 5. di = rowsum(dO * O) cost four launches in the wrapper. The fused kernel
 //    computes it from dO in shared memory and O.
+// 6. Head dims above 64 (flash_mma.cuh): a warp's own rows as A fragments
+//    and its dK, dV accumulators would not fit its registers, nor the long
+//    tiles shared memory, so a wide Dh runs in chunks of 64 columns. Each
+//    long-route block owns one chunk of its outputs (grid y): for each tile
+//    of 64 rows of the other side it copies the chunks of its own rows and
+//    of the tile's one at a time (its own chunk last), adds S^T and dP^T
+//    (dK/dV) or S and dP (dQ) up in registers, then makes P and dS and the
+//    products on its chunk, which the tiles still hold (70 KB, one copy in
+//    flight a block). The fused route keeps its block: per head, the key
+//    side makes dK and dV a chunk at a time, S^T and dP^T computed again
+//    over every column for each chunk and dS^T kept from the first, and
+//    the query side dQ a chunk at a time from dS^T. Measured on an NVIDIA
+//    H100 80GB HBM3 at 700 W (chip_smoke.py phase k2): the L1001 probe at
+//    Dh 128, H 4: dK/dV 18.7 ms and dQ 14.6 ms alone, 12% and 11% of their
+//    2.17 and 1.63 ms (operations) bounds; BST's rows with one head of Dh
+//    128 (long): 0.69 and 0.54 ms, 14% and 15% of their (bytes) bounds;
+//    Dh 72 fused: 0.65 ms, 11%; Dh 256, B 256, H 2: 1.15 and 0.93 ms, 8%
+//    and 9%. nvcc -Xptxas -v (chip_smoke.py --ptxas, the same card): dK/dV
+//    205 registers, dQ 168, the wide fused kernel 157, no spills.
 // Each output element is written once, by one lane, with no atomics: every
 // launch is bitwise deterministic.
 //
@@ -91,10 +110,8 @@ int64_t fused_smem_bytes(int L, int H, int Dh) {
 // The 16 rows a warp owns from row r0: A fragments of two tensors (k and v,
 // or q and dO), and the seg and liveness of the lane's rows g and g + 8.
 template <int DP>
-struct Own {
+struct Own : RowSeg {
   ARows<DP <= 32> x[DP / 8], y[DP / 8];
-  int seg[2];
-  bool ok[2];
 
   __device__ __forceinline__ void load(const View& xv, const View& yv, const int* segs,
                                        int r0, int n, Lane l) {
@@ -103,12 +120,7 @@ struct Own {
       x[kk].set(xv, r0, 8 * kk, l);
       y[kk].set(yv, r0, 8 * kk, l);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + l.g + 8 * r;
-      ok[r] = row < n;
-      seg[r] = ok[r] ? segs[row] : 0;
-    }
+    set(segs, r0, n, l);
   }
 };
 
@@ -122,8 +134,7 @@ struct Cols {
   bool live;  // the same in every lane of the warp
 };
 
-template <int DP>
-__device__ __forceinline__ Cols cols(const Own<DP>& own, const int* seg, int n, int j0,
+__device__ __forceinline__ Cols cols(const RowSeg& own, const int* seg, int n, int j0,
                                      Lane l) {
   Cols c;
   bool any = false;
@@ -159,6 +170,52 @@ __device__ __forceinline__ void head_products(const Own<DP>& own, const View& y,
   }
 }
 
+// Wide head dims: s += X Y^T and dp += Z W^T over ng groups of 8 columns,
+// X and Z the warp's own 16 rows from r0 read from shared memory as A
+// fragments, Y and W the 8 rows at j0 (B).
+__device__ __forceinline__ void wide_products(const View& x, const View& z, const View& y,
+                                              const View& w, int r0, int j0, int ng, Lane l,
+                                              Acc3& s, Acc3& dp) {
+  for (int kk = 0; kk < ng; ++kk) {
+    s.add(load_a(x, r0, 8 * kk, l), load_bt(y, j0, 8 * kk, l));
+    dp.add(load_a(z, r0, 8 * kk, l), load_bt(w, j0, 8 * kk, l));
+  }
+}
+
+// The same for the 8 tiles of a long block's streamed side at once
+// (j0 = 8 jt for the live tiles jt), the A fragments split once for all.
+__device__ __forceinline__ void wide_products_tiles(const View& x, const View& z,
+                                                    const View& y, const View& w, int r0,
+                                                    int ng, uint32_t live, Lane l,
+                                                    float (&s)[8][4], float (&dp)[8][4]) {
+  for (int kk = 0; kk < ng; ++kk) {
+    const FragA ax = load_a(x, r0, 8 * kk, l), az = load_a(z, r0, 8 * kk, l);
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt) {
+      if (!(live >> jt & 1)) continue;
+      mma3(s[jt], ax, load_bt(y, 8 * jt, 8 * kk, l));
+      mma3(dp[jt], az, load_bt(w, 8 * jt, 8 * kk, l));
+    }
+  }
+}
+
+// P^T and dS^T of the key side's 16 x 8 tile at the queries j0 (the
+// lane's entries), from the sums S^T (s) and dP^T (dp); lse2 (lse * log2 e),
+// di and the visibility c are the queries'.
+__device__ __forceinline__ void key_side_probs(const RowSeg& own, const Cols& c,
+                                               const float (&s)[4], const float (&dp)[4],
+                                               const float* lse2, const float* di, int nq,
+                                               int j0, float c2, Lane l, float (&p)[4],
+                                               float (&ds)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = e >> 1, i = e & 1, j = min(j0 + 2 * l.t + i, nq - 1);
+    const bool on = own.ok[r] && c.ok[i] && c.seg[i] == own.seg[r];
+    p[e] = on ? exp2f(fmaf(s[e], c2, -lse2[j])) : 0.f;
+    ds[e] = on ? p[e] * (dp[e] - di[j]) : 0.f;
+  }
+}
+
 // ------------------------------------------------------------ the two steps
 // Key side, one step of 8 queries at j0: S^T and dP^T of the warp's keys
 // against the queries, then P^T and dS^T, then dV += P^T dO and
@@ -177,14 +234,13 @@ __device__ __forceinline__ void dkv_step(const Own<DP>& kv, const View& q, const
   }
   Acc3 s, dp;
   head_products<DP, kTail4>(kv, q, dout, j0, l, s, dp);
-  float p[4];
+  float p[4], ss[4], dps[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int r = e >> 1, i = e & 1, j = min(j0 + 2 * l.t + i, nq - 1);
-    const bool on = kv.ok[r] && c.ok[i] && c.seg[i] == kv.seg[r];
-    p[e] = on ? exp2f(fmaf(s.sum(e), c2, -lse2[j])) : 0.f;
-    ds[e] = on ? p[e] * (dp.sum(e) - di[j]) : 0.f;
+    ss[e] = s.sum(e);
+    dps[e] = dp.sum(e);
   }
+  key_side_probs(kv, c, ss, dps, lse2, di, nq, j0, c2, l, p, ds);
   const FragA pa = acc_as_a(p), da = acc_as_a(ds);
 #pragma unroll
   for (int nn = 0; nn < DP / 8; ++nn) {
@@ -237,7 +293,11 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out, int64_t base,
 // heads one after the other. Per head: each warp takes 16 keys and streams
 // the queries in steps of 8 (dK, dV, and dS^T into shared memory), then,
 // after a barrier, 16 queries, streaming dS^T and K in steps of 8 keys (dQ).
-template <int DP, bool kTail4>
+// kWide (Dh > 64, DP = kC): the key side makes dK and dV a chunk of kC
+// columns at a time, S^T and dP^T over every column from shared memory
+// again for each (dS^T is kept from the first); the query side makes dQ a
+// chunk at a time from the kept dS^T.
+template <int DP, bool kTail4, bool kWide = false>
 __global__ void __launch_bounds__(kFusedMaxL / 16 * 32, DP <= 16 ? 2 : 1)
 flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const int* __restrict__ seg,
@@ -290,6 +350,79 @@ flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Lane l = lane();
   const int r0 = 16 * (tid >> 5);
   const float c2 = scale * kLog2e;
+  if constexpr (kWide) {
+    RowSeg own;
+    own.set(seg_s, r0, L, l);
+    const int ng = (Dh + 7) / 8;
+    for (int h = 0; h < H; ++h) {
+      const View qv{qs + h * Dh, HD, L, Dh}, kv{ks + h * Dh, HD, L, Dh};
+      const View vv{vs + h * Dh, HD, L, Dh}, dov{dos + h * Dh, HD, L, Dh};
+      const int64_t obase = base + (int64_t)h * Dh;
+      for (int c0 = 0; c0 < Dh; c0 += kC) {  // the warp's keys, a chunk at a time
+        const int wc = min(kC, Dh - c0), nw = (wc + 7) / 8;
+        const View qc{qs + h * Dh + c0, HD, L, wc}, doc{dos + h * Dh + c0, HD, L, wc};
+        Acc<DP> dka, dva;
+        zero<DP>(dka);
+        zero<DP>(dva);
+        for (int j0 = 0; j0 < L; j0 += 8) {
+          const Cols c = cols(own, seg_s, L, j0, l);
+          float ds[4] = {0.f, 0.f, 0.f, 0.f};
+          if (c.live) {
+            Acc3 s, dp;
+            wide_products(kv, vv, qv, dov, r0, j0, ng, l, s, dp);
+            float p[4], ss[4], dps[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ss[e] = s.sum(e);
+              dps[e] = dp.sum(e);
+            }
+            key_side_probs(own, c, ss, dps, lse_s + h * L, di_s + h * L, L, j0, c2, l, p, ds);
+            const FragA pa = acc_as_a(p), da = acc_as_a(ds);
+#pragma unroll
+            for (int nn = 0; nn < DP / 8; ++nn) {
+              if (nn >= nw) break;
+              mma3(dva[nn], pa, load_b_acc(doc, j0, 8 * nn, l));
+              mma3(dka[nn], da, load_b_acc(qc, j0, 8 * nn, l));
+            }
+          }
+          if (c0 == 0)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + l.g + 8 * (e >> 1), j = j0 + 2 * l.t + (e & 1);
+              if (row < L && j < L) dst[row * lds + j] = ds[e];
+            }
+        }
+        store_acc<DP>(dk, obase + c0, HD, r0, L, wc, dka, scale, l);
+        store_acc<DP>(dv, obase + c0, HD, r0, L, wc, dva, 1.f, l);
+      }
+      __syncthreads();
+      const View dsv{dst, lds, L, L};  // (key, query)
+      const int qseg0 = seg_s[min(r0 + l.g, L - 1)], qseg1 = seg_s[min(r0 + l.g + 8, L - 1)];
+      for (int c0 = 0; c0 < Dh; c0 += kC) {  // the warp's queries, a chunk at a time
+        const int wc = min(kC, Dh - c0), nw = (wc + 7) / 8;
+        const View kc{ks + h * Dh + c0, HD, L, wc};
+        Acc<DP> dqa;
+        zero<DP>(dqa);
+        for (int k0 = 0; k0 < L; k0 += 8) {
+          bool any = false;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int j = k0 + l.t + 4 * i;
+            const int kseg = seg_s[min(j, L - 1)];
+            any |= j < L && (kseg == qseg0 || kseg == qseg1);
+          }
+          if (!__any_sync(0xffffffffu, any)) continue;
+          const FragA a = load_at(dsv, k0, r0, l);
+#pragma unroll
+          for (int nn = 0; nn < DP / 8; ++nn)
+            if (nn < nw) mma3(dqa[nn], a, load_b(kc, k0, 8 * nn, l));
+        }
+        store_acc<DP>(dq, obase + c0, HD, r0, L, wc, dqa, scale, l);
+      }
+      __syncthreads();  // before the next head's dS^T
+    }
+    return;
+  }
   for (int h = 0; h < H; ++h) {
     const View qv{qs + h * Dh, HD, L, Dh}, kv{ks + h * Dh, HD, L, Dh};
     const View vv{vs + h * Dh, HD, L, Dh}, dov{dos + h * Dh, HD, L, Dh};
@@ -487,6 +620,175 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_acc<DP>(dq, w.base, HD, w.row0 + r0, L, Dh, dqa, scale, l);
 }
 
+// ------------------------------------------------------------ wide long route
+// Shared memory of a wide long-route block: four chunk tiles ([kTile][kCs]
+// each: the block's own two, the streamed side's two) and three row
+// vectors [kTile].
+__host__ __device__ constexpr int64_t wide_long_bytes() { return 4 * (4LL * kCTile + 3LL * kTile); }
+
+// dK and dV's chunk blockIdx.y (kC columns) of the block's 64 keys. For each
+// tile of 64 queries the block takes the chunks of K, V (its own rows) and
+// Q, dO (the tile's) one by one, adding up S^T and dP^T of its warps in
+// registers, chunk c last; then P^T and dS^T, and dV += P^T dO, dK += dS^T Q
+// on chunk c, which the tiles still hold.
+__global__ void __launch_bounds__(kLongThreads, 2)
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ seg,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ di, float* __restrict__ dk,
+                          float* __restrict__ dv, int L, int H, int Dh, float scale, bool vec) {
+  extern __shared__ float4 smem[];
+  float* kt = reinterpret_cast<float*>(smem);
+  float* vt = kt + kCTile;
+  float* qt = vt + kCTile;
+  float* dot = qt + kCTile;
+  float* lse_s = dot + kCTile;  // [kTile], then times log2 e
+  float* di_s = lse_s + kTile;
+  int* seg_s = reinterpret_cast<int*>(di_s + kTile);
+  const Where w = where(L, H, Dh);
+  const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
+  const int kn = min(kTile, L - w.row0), nt = (L + kTile - 1) / kTile;
+  const int nd = chunks(Dh), c0 = blockIdx.y * kC, wc = min(kC, Dh - c0);
+  const int64_t seg_b = (int64_t)w.b * L;
+  const Lane l = lane();
+  const float c2 = scale * kLog2e;
+
+  zero_smem(smem, (int)(wide_long_bytes() / 16), tid, kLongThreads);
+  RowSeg own;
+  own.set(seg + seg_b + w.row0, r0, kn, l);
+  Acc<kC> dka, dva;
+  zero<kC>(dka);
+  zero<kC>(dva);
+  for (int t = 0; t < nt; ++t) {
+    const int q0 = t * kTile, n = min(kTile, L - q0);
+    float s[8][4] = {}, dp[8][4] = {};
+    uint32_t live = 0;
+    for (int i = 0; i < nd; ++i) {
+      const int d0 = chunk_at(i, blockIdx.y, nd) * kC, wd = min(kC, Dh - d0);
+      __syncthreads();  // every warp is done with the tiles
+      load_chunk_async(kt, k, w.base, d0, w.row0, kn, HD, wd, vec, tid);
+      load_chunk_async(vt, v, w.base, d0, w.row0, kn, HD, wd, vec, tid);
+      load_chunk_async(qt, q, w.base, d0, q0, n, HD, wd, vec, tid);
+      load_chunk_async(dot, dout, w.base, d0, q0, n, HD, wd, vec, tid);
+      if (i == 0)
+        for (int e = tid; e < n; e += kLongThreads) {
+          cp_async4(lse_s + e, lse + w.rows + q0 + e);
+          cp_async4(di_s + e, di + w.rows + q0 + e);
+          cp_async4(seg_s + e, seg + seg_b + q0 + e);
+        }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i == 0) {  // the tiles with a visible pair; lse2 for the last chunk (nd >= 2)
+#pragma unroll
+        for (int jt = 0; jt < 8; ++jt)
+          if (8 * jt < n && cols(own, seg_s, n, 8 * jt, l).live) live |= 1u << jt;
+        for (int e = tid; e < n; e += kLongThreads) lse_s[e] *= kLog2e;
+      }
+      wide_products_tiles(View{kt, kCs, kn, wd}, View{vt, kCs, kn, wd}, View{qt, kCs, n, wd},
+                          View{dot, kCs, n, wd}, r0, (wd + 7) / 8, live, l, s, dp);
+    }
+    const View qc{qt, kCs, n, wc}, doc{dot, kCs, n, wc};
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt) {
+      if (!(live >> jt & 1)) continue;
+      float p[4], ds[4];
+      key_side_probs(own, cols(own, seg_s, n, 8 * jt, l), s[jt], dp[jt], lse_s, di_s, n,
+                     8 * jt, c2, l, p, ds);
+      const FragA pa = acc_as_a(p), da = acc_as_a(ds);
+#pragma unroll
+      for (int nn = 0; nn < kC / 8; ++nn) {
+        if (8 * nn >= wc) break;
+        mma3(dva[nn], pa, load_b_acc(doc, 8 * jt, 8 * nn, l));
+        mma3(dka[nn], da, load_b_acc(qc, 8 * jt, 8 * nn, l));
+      }
+    }
+  }
+  store_acc<kC>(dk, w.base + c0, HD, w.row0 + r0, L, wc, dka, scale, l);
+  store_acc<kC>(dv, w.base + c0, HD, w.row0 + r0, L, wc, dva, 1.f, l);
+}
+
+// dQ's chunk blockIdx.y of the block's 64 queries: for each tile of 64 keys
+// the chunks of Q, dO (its own rows) and K, V (the tile's) one by one, S and
+// dP added up in registers, chunk c last; then dS and dQ += dS K on chunk c.
+__global__ void __launch_bounds__(kLongThreads, 2)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ seg,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ di, float* __restrict__ dq, int L, int H,
+                         int Dh, float scale, bool vec) {
+  extern __shared__ float4 smem[];
+  float* qt = reinterpret_cast<float*>(smem);
+  float* dot = qt + kCTile;
+  float* kt = dot + kCTile;
+  float* vt = kt + kCTile;
+  int* seg_s = reinterpret_cast<int*>(vt + kCTile);
+  const Where w = where(L, H, Dh);
+  const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
+  const int qn = min(kTile, L - w.row0), nt = (L + kTile - 1) / kTile;
+  const int nd = chunks(Dh), c0 = blockIdx.y * kC, wc = min(kC, Dh - c0);
+  const int64_t seg_b = (int64_t)w.b * L;
+  const Lane l = lane();
+  const float c2 = scale * kLog2e;
+
+  zero_smem(smem, (int)(wide_long_bytes() / 16), tid, kLongThreads);
+  RowSeg own;
+  own.set(seg + seg_b + w.row0, r0, qn, l);
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = min(w.row0 + r0 + l.g + 8 * r, L - 1);
+    lse2[r] = lse[w.rows + row] * kLog2e;
+    di_r[r] = di[w.rows + row];
+  }
+  Acc<kC> dqa;
+  zero<kC>(dqa);
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * kTile, n = min(kTile, L - k0);
+    float s[8][4] = {}, dp[8][4] = {};
+    uint32_t live = 0;
+    for (int i = 0; i < nd; ++i) {
+      const int d0 = chunk_at(i, blockIdx.y, nd) * kC, wd = min(kC, Dh - d0);
+      __syncthreads();  // every warp is done with the tiles
+      load_chunk_async(qt, q, w.base, d0, w.row0, qn, HD, wd, vec, tid);
+      load_chunk_async(dot, dout, w.base, d0, w.row0, qn, HD, wd, vec, tid);
+      load_chunk_async(kt, k, w.base, d0, k0, n, HD, wd, vec, tid);
+      load_chunk_async(vt, v, w.base, d0, k0, n, HD, wd, vec, tid);
+      if (i == 0)
+        for (int e = tid; e < n; e += kLongThreads) cp_async4(seg_s + e, seg + seg_b + k0 + e);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i == 0)
+#pragma unroll
+        for (int jt = 0; jt < 8; ++jt)
+          if (8 * jt < n && cols(own, seg_s, n, 8 * jt, l).live) live |= 1u << jt;
+      wide_products_tiles(View{qt, kCs, qn, wd}, View{dot, kCs, qn, wd}, View{kt, kCs, n, wd},
+                          View{vt, kCs, n, wd}, r0, (wd + 7) / 8, live, l, s, dp);
+    }
+    const View kc{kt, kCs, n, wc};
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt) {
+      if (!(live >> jt & 1)) continue;
+      const Cols c = cols(own, seg_s, n, 8 * jt, l);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, i = e & 1;
+        const bool on = own.ok[r] && c.ok[i] && c.seg[i] == own.seg[r];
+        ds[e] = on ? exp2f(fmaf(s[jt][e], c2, -lse2[r])) * (dp[jt][e] - di_r[r]) : 0.f;
+      }
+      const FragA da = acc_as_a(ds);
+#pragma unroll
+      for (int nn = 0; nn < kC / 8; ++nn) {
+        if (8 * nn >= wc) break;
+        mma3(dqa[nn], da, load_b_acc(kc, 8 * jt, 8 * nn, l));
+      }
+    }
+  }
+  store_acc<kC>(dq, w.base + c0, HD, w.row0 + r0, L, wc, dqa, scale, l);
+}
+
 // ------------------------------------------------------------ host side
 struct Args {
   const float *q, *k, *v;
@@ -521,6 +823,28 @@ struct Launch {
       launch_kernel(flash_bwd_dq_kernel<DP, kTail4>, grid, kLongThreads, long_bytes<DP>(), s,
                     a.q, a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dq, a.L, a.H, a.Dh, a.scale,
                     vec);
+  }
+
+  // Dh > 64, in chunks of kC = DP columns
+  static void run_wide(const Which& which, const Args& a, const cudaStream_t& s) {
+    const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
+    if (which == kFused) {
+      const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
+      launch_kernel(flash_bwd_fused_kernel<DP, false, true>, (unsigned)a.B,
+                    (a.L + 15) / 16 * 32, fused_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v,
+                    a.seg, a.o, a.dout, a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
+      return;
+    }
+    const bool vec = vec4 && a.Dh % 4 == 0;
+    const dim3 grid((unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H),
+                    (unsigned)chunks(a.Dh));
+    if (which == kDkv)
+      launch_kernel(flash_bwd_dkv_wide_kernel, grid, kLongThreads, wide_long_bytes(), s, a.q,
+                    a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dk, a.dv, a.L, a.H, a.Dh, a.scale,
+                    vec);
+    else
+      launch_kernel(flash_bwd_dq_wide_kernel, grid, kLongThreads, wide_long_bytes(), s, a.q,
+                    a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dq, a.L, a.H, a.Dh, a.scale, vec);
   }
 };
 

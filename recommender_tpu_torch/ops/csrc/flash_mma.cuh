@@ -1,7 +1,19 @@
 // Pieces shared by K2's forward (flash_attention.cu) and backward
 // (flash_attention_bwd.cu): cp.async copies, 3xTF32 mma.sync products at
 // f32 accuracy, fragment loads from shared memory, the long routes' tiles
-// and block index, and the launch.
+// and block index, the wide head dims' column chunks, and the launch.
+//
+// Head dims. Dh <= 64 is padded to DP, a multiple of 8, and a warp keeps
+// its own 16 rows as A fragments and its outputs as accumulators in
+// registers (by_head_dim). Dh > 64 ("wide") would not fit there: at DP 128
+// the rows and the accumulators alone take ~200 registers, and a long
+// block's double-buffered 64-row tiles 135 KB (over 227 KB at 256). So a
+// wide Dh is cut into chunks of kC = 64 columns: the products over Dh
+// (S = Q K^T, dP = dO V^T) add up chunk by chunk, their A rows read from
+// shared memory, and each output (O, dK and dV, dQ) is made kC columns at a
+// time, the products over Dh computed again for each chunk. A long block
+// holds one chunk of each tile it needs ([kTile][kCs] floats), so its
+// shared memory and registers do not grow with Dh: any Dh >= 1 runs.
 //
 // Layout of every tensor as the kernels see it: q, k, v, o and their
 // gradients f32 [B, L, H, Dh] (heads-last, contiguous); seg int32 [B, L];
@@ -19,6 +31,8 @@ constexpr int kFusedMaxL = 128;  // fused routes: the longest sequence one block
 constexpr int kTile = 64;        // long routes: rows per block and per streamed tile
 constexpr int kLongThreads = kTile / 16 * 32;
 constexpr int64_t kMaxSmem = 232448;  // the most shared memory one block may use
+constexpr int kNarrowMaxDh = 64;      // by_head_dim's widest padding; above it, chunks
+constexpr int kC = 64;                // wide head dims: columns of a chunk
 
 // Floats of one tensor's [L, H, Dh] span of n in a fused route: rounded up
 // to 16 bytes, then 16 zeros. B reads of the last row reach DP - Dh <= 15
@@ -198,9 +212,15 @@ __device__ __forceinline__ FragB load_b_acc(const View& x, int r0, int c0, Lane 
   return split_b(x.at(r0 + 2 * l.t, c0 + l.g), x.at(r0 + 2 * l.t + 1, c0 + l.g));
 }
 
-// A warp's own rows, times mul, as A fragments (A[m][k] = X(r0 + m, c0 + k)),
-// one per 8 columns: split once (kSplit: 8 registers a fragment), or kept in
-// f32 and split at each use (4 registers).
+// A[m][k] = mul * X(r0 + m, c0 + k): 16 rows of X as the A operand
+__device__ __forceinline__ FragA load_a(const View& x, int r0, int c0, Lane l, float mul = 1.f) {
+  return split_a(mul * x(r0 + l.g, c0 + l.t), mul * x(r0 + l.g + 8, c0 + l.t),
+                 mul * x(r0 + l.g, c0 + l.t + 4), mul * x(r0 + l.g + 8, c0 + l.t + 4));
+}
+
+// A warp's own rows, times mul, as A fragments (load_a), one per 8 columns:
+// split once (kSplit: 8 registers a fragment), or kept in f32 and split at
+// each use (4 registers).
 template <bool kSplit>
 struct ARows;
 
@@ -208,8 +228,7 @@ template <>
 struct ARows<true> {
   FragA f;
   __device__ __forceinline__ void set(const View& x, int r0, int c0, Lane l, float mul = 1.f) {
-    f = split_a(mul * x(r0 + l.g, c0 + l.t), mul * x(r0 + l.g + 8, c0 + l.t),
-                mul * x(r0 + l.g, c0 + l.t + 4), mul * x(r0 + l.g + 8, c0 + l.t + 4));
+    f = load_a(x, r0, c0, l, mul);
   }
   __device__ __forceinline__ FragA get() const { return f; }
 };
@@ -224,6 +243,21 @@ struct ARows<false> {
     x[3] = mul * v(r0 + l.g + 8, c0 + l.t + 4);
   }
   __device__ __forceinline__ FragA get() const { return split_a(x[0], x[1], x[2], x[3]); }
+};
+
+// The segment ids of a warp's lane rows g and g + 8 (of its 16 rows from
+// r0), and whether each is below n.
+struct RowSeg {
+  int seg[2];
+  bool ok[2];
+  __device__ __forceinline__ void set(const int* segs, int r0, int n, Lane l) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + l.g + 8 * r;
+      ok[r] = row < n;
+      seg[r] = ok[r] ? segs[row] : 0;
+    }
+  }
 };
 
 // ------------------------------------------------------------ long routes
@@ -257,6 +291,34 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
       for (int r = tid / DP; r < n; r += kStep)
         cp_async4(dst + r * RS + c, x + base + (int64_t)(row0 + r) * HD + c);
   }
+}
+
+// ------------------------------------------------------------ wide head dims
+// A chunk tile: kTile rows of kC columns of one head, [kTile][kCs] floats.
+// Columns past the chunk's own width (its last, partial chunk) hold zeros or
+// an earlier chunk's inputs: A reads give 0 there (View::cols), and B reads
+// meet those zeros, or land in output columns that are not stored.
+constexpr int kCs = Long<kC>::kRs;
+constexpr int kCTile = Long<kC>::kTileFloats;
+
+__host__ __device__ constexpr int chunks(int Dh) { return (Dh + kC - 1) / kC; }
+
+// Columns [d0, d0 + w) of rows [row0, row0 + n) of one head (base as in
+// load_tile_async) into a chunk tile.
+__device__ __forceinline__ void load_chunk_async(float* dst, const float* __restrict__ x,
+                                                 int64_t base, int d0, int row0, int n, int HD,
+                                                 int w, bool vec, int tid) {
+  load_tile_async<kC, kCs>(dst, x, base + d0, row0, n, HD, w, vec, tid);
+}
+
+// The chunk order of a block that owns output chunk c of nd: every other
+// chunk first, then c, so that the last chunk the products read is the
+// one the outputs need.
+__device__ __forceinline__ int chunk_at(int i, int c, int nd) { return (c + 1 + i) % nd; }
+
+// Zeros into a block's first n16 * 16 bytes of dynamic shared memory.
+__device__ __forceinline__ void zero_smem(float4* smem, int n16, int tid, int nthreads) {
+  for (int e = tid; e < n16; e += nthreads) smem[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // Columns [Dh, DP) of ntiles consecutive tiles, which the copies never
@@ -294,13 +356,16 @@ __device__ __forceinline__ Where where(int L, int H, int Dh) {
 // ------------------------------------------------------------ host side
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// Any Dh >= 1; the long routes' grid holds B * tiles * H blocks in x and
+// the wide chunks in y.
 inline bool shape_ok(int B, int L, int H, int Dh) {
-  return B > 0 && L > 0 && H > 0 && Dh > 0 && Dh <= 64 &&
+  return B > 0 && L > 0 && H > 0 && Dh > 0 && chunks(Dh) <= 65535 &&
+         (int64_t)L * H * Dh <= 0x7fffffff &&
          (int64_t)B * ((L + kTile - 1) / kTile) * H <= 0x7fffffff;
 }
 
 template <typename Kernel, typename... Ts>
-void launch_kernel(Kernel kernel, unsigned grid, int threads, int64_t smem,
+void launch_kernel(Kernel kernel, dim3 grid, int threads, int64_t smem,
                    cudaStream_t stream, Ts... args) {
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -311,7 +376,8 @@ void launch_kernel(Kernel kernel, unsigned grid, int threads, int64_t smem,
 
 // Launch<DP, kTail4>::run(args...) for Dh padded to DP, a multiple of 8
 // (Dh <= 64); kTail4 where Dh % 8 is 1..4 and the last 8 columns of a
-// product over Dh take a k = 4 product.
+// product over Dh take a k = 4 product. Launch<kC, false>::run_wide(args...)
+// for any wider Dh, in chunks of kC columns.
 template <template <int, bool> class Launch, typename... Ts>
 void by_head_dim(int Dh, const Ts&... args) {
   if (Dh <= 4)
@@ -328,8 +394,10 @@ void by_head_dim(int Dh, const Ts&... args) {
     Launch<32, false>::run(args...);
   else if (Dh <= 48)
     Launch<48, false>::run(args...);
-  else
+  else if (Dh <= kNarrowMaxDh)
     Launch<64, false>::run(args...);
+  else
+    Launch<kC, false>::run_wide(args...);
 }
 
 }  // namespace

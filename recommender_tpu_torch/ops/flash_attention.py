@@ -1,4 +1,4 @@
-"""Flash attention with a segment-id key mask (K2), for small head dims.
+"""Flash attention with a segment-id key mask (K2), at any head dim.
 
 Port of the attention kernel that ``recommender_tpu/nn/transformer.py::
 _flash_mha`` reaches: JAX's Pallas TPU ``flash_attention`` (its forward and
@@ -23,6 +23,11 @@ which ``bwd_route`` picks:
   kernel run, each streaming the other side's rows in tiles of 64.
 
 Both sets of kernels run on the tensor cores at f32 accuracy (3xTF32).
+Each file instantiates its kernels by head dim: Dh up to 64 padded to a
+multiple of 8, the rows a warp owns kept in registers; any wider Dh in
+chunks of 64 columns (``csrc/flash_mma.cuh``, "Head dims"), on both routes
+and with the same shared-memory counts, so the routes do not depend on the
+instantiation.
 
 Semantics are the TPU kernel's ``SegmentIds(seg, seg)`` with
 ``seg = valid``: key j is visible to query i iff ``valid[b, i] ==
@@ -50,7 +55,6 @@ import torch
 
 from recommender_tpu_torch.ops import _build
 
-MAX_HEAD_DIM = 64
 FUSED_MAX_L = 128
 # shared memory one block may use on Hopper (227 KB)
 MAX_BLOCK_SMEM = 232_448
@@ -125,8 +129,8 @@ def _check_args(q, k, v, valid):
             f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
         )
     B, L, H, Dh = q.shape
-    if min(B, L, H) < 1 or not 1 <= Dh <= MAX_HEAD_DIM:
-        raise ValueError(f"needs B, L, H >= 1 and 1 <= Dh <= {MAX_HEAD_DIM}, got {tuple(q.shape)}")
+    if min(B, L, H, Dh) < 1:
+        raise ValueError(f"needs B, L, H, Dh >= 1, got {tuple(q.shape)}")
     if valid.shape != (B, L):
         raise ValueError(f"valid must be [B, L] = {(B, L)}, got {tuple(valid.shape)}")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
@@ -216,7 +220,7 @@ def _backward(q, k, v, seg, o, lse, do):
 def flash_mha(q, k, v, valid) -> torch.Tensor:
     """Multi-head attention over [B, L, H, Dh] f32 heads-last q, k, v with
     the segment-equality mask of ``valid`` [B, L] (1 = real position,
-    0 = pad); returns [B, L, H, Dh]. Dh is at most 64; L is any length.
+    0 = pad); returns [B, L, H, Dh]. L and Dh are any length.
 
     CPU tensors take ``flash_mha_ref``; CUDA tensors launch the kernels,
     or raise."""

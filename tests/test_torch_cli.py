@@ -1,7 +1,7 @@
 """The port's ``cli.train_dien`` entry point on the CPU: the four model
 types on synthetic data, bf16 tables, the file path on a TSV fixture,
 ``--resume`` (bit for bit against the straight run), the TensorBoard flag,
-``--device``, the refused flag, the launch flags on one process, and that no
+``--device``, ``--accum_steps`` with a resume, the launch flags on one process, and that no
 file of the port imports jax or the JAX package."""
 import json
 import os
@@ -148,10 +148,33 @@ def test_cli_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("flag", [["--accum_steps", "2"]], ids=lambda f: f[0].lstrip("-"))
-def test_cli_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match=f"{flag[0]}.*not ported yet|{flag[0]}.*slice"):
-        train_dien.main(COMMON + TINY + flag)
-    assert flag[0].lstrip("-") in common.UNPORTED_FLAGS
+def test_cli_refuses_unported_flags(capsys, tmp_path, monkeypatch, flag):
+    """No flag is refused for being unported: ``--accum_steps 2`` trains
+    DIEN (bf16 tables) in two microbatches a step, and a run stopped at
+    step 4 and resumed ends bit for bit where the straight run does."""
+    from recommender_tpu_torch.core.train import Trainer
+
+    calls = []
+    real = Trainer._accumulate
+    monkeypatch.setattr(Trainer, "_accumulate",
+                        lambda self, *a: calls.append(a[2]) or real(self, *a))
+    base = COMMON + TINY + flag + ["--model_type", "DIEN", "--embed_dtype", "bf16"]
+    straight = train_dien.main(base)
+    assert calls == [2] * 10 and straight.step == 10
+    ckpt = ["--checkpoint_dir", str(tmp_path)]
+    assert train_dien.main(base + ["--steps", "4"] + ckpt).step == 4
+    resumed = train_dien.main(base + ["--steps", "6", "--resume"] + ckpt)
+    assert resumed.step == 10 and resumed.optimizer.count == 10
+    want, got = straight.model.state_dict(), resumed.model.state_dict()
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+    for which in ("mu", "nu"):
+        for a, b in zip(straight.optimizer.state_dict()[which],
+                        resumed.optimizer.state_dict()[which]):
+            assert torch.equal(a, b)
+    finals = [m for m in _lines(capsys) if "final" in m]
+    assert finals[0] == finals[2] != finals[1]
+    assert not hasattr(common, "UNPORTED_FLAGS")
 
 
 @pytest.mark.parametrize(
@@ -186,8 +209,7 @@ def test_flags_and_defaults_are_the_jax_entry_points():
     assert ours.pop("device") == "cuda"
     assert ours.pop("dist_backend") == "auto"  # the port's: gloo for ranks sharing a card
     assert ours == theirs
-    assert set(common.UNPORTED_FLAGS) <= set(theirs)
-    assert all(theirs[k] == v[0] for k, v in common.UNPORTED_FLAGS.items())
+    assert not hasattr(common, "UNPORTED_FLAGS")  # every flag is ported
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():

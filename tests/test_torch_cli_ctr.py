@@ -197,15 +197,99 @@ def test_cli_resume_refuses_another_stream(capsys, tmp_path, shard_dir, flag):
 
 
 # ----------------------------------------------------------------- flags
+def test_prepare_criteo_matches_the_jax_cli_then_trains(capsys, tmp_path):
+    """``cli.prepare_criteo`` on ``tests/test_cli_rawformat.py``'s raw TSV
+    fixture writes the JAX CLI's vocab and shards bit for bit (the same
+    names, keys, dtypes and bytes), and ``cli.train_ctr`` trains over them."""
+    from recommender_tpu.cli import prepare_criteo as jax_prepare_criteo
+    from recommender_tpu_torch.cli import prepare_criteo
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for _ in range(600):
+        ints = ["" if rng.random() < 0.1 else str(int(rng.integers(0, 50)))
+                for _ in range(criteo.NUM_INT)]
+        cats = [f"c{j}_{int(rng.integers(5))}" for j in range(criteo.NUM_CAT)]
+        rows.append(str(int(rng.random() < 0.3)) + "\t" + "\t".join(ints)
+                    + "\t" + "\t".join(cats))
+    raw = tmp_path / "raw.tsv"
+    raw.write_text("\n".join(rows) + "\n")
+    outs = {}
+    for name, cli in (("port", prepare_criteo), ("jax", jax_prepare_criteo)):
+        outs[name] = tmp_path / name
+        cli.main(["--train", str(raw), "--test", str(raw), "--out_dir", str(outs[name]),
+                  "--min_count", "2", "--shard_rows", "250"])
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[:3] == printed[3:] and printed[1:3] == ["train: 3 shards", "test: 3 shards"]
+    port, ref = outs["port"], outs["jax"]
+    assert (port / "vocab.pkl").read_bytes() == (ref / "vocab.pkl").read_bytes()
+    for split in ("train", "test"):
+        names = sorted(os.listdir(ref / split))
+        assert sorted(os.listdir(port / split)) == names == [f"shard_{i:05d}.npz" for i in range(3)]
+        for n in names:
+            got, want = np.load(port / split / n), np.load(ref / split / n)
+            assert sorted(got.files) == sorted(want.files)
+            for k in want.files:
+                assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+                assert got[k].tobytes() == want[k].tobytes(), (split, n, k)
+    state = train_ctr.main(COMMON + [
+        "--model_type", "DLRM", "--data_dir", str(port), "--vocab", str(port / "vocab.pkl"),
+        "--vocab_size", "2000", "--train_batch_size", "64", "--test_batch_size", "128",
+        "--eval_batches", "2", "--embedding_size", "8", "--steps", "6"])
+    final = _lines(capsys)[-1]
+    assert state.step == 6 and final["final"] == 1 and final["eval_batches"] == 2
+
+
+def _assert_same_run(a, b):
+    """Two runs' params and optimizer state, bit for bit."""
+    want, got = a.model.state_dict(), b.model.state_dict()
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+    for which in a.optimizer.slots:
+        for x, y in zip(a.optimizer.state_dict()[which], b.optimizer.state_dict()[which]):
+            assert torch.equal(x, y)
+
+
+ACCUM_RESUME = ["--synthetic", "--embed_dtype", "bf16", "--lr_schedule", "dlrm",
+                "--warmup_steps", "4", "--decay_steps", "8", "--log_every", "100"]
+
+
 @pytest.mark.parametrize(
-    "flag,match",
-    [(["--accum_steps", "2"], "gradient accumulation"),
-     (["--accum_steps", "2", "--dedup_lookup", "on"], "gradient accumulation")],
-    ids=lambda x: "_".join(x).lstrip("-") if isinstance(x, list) else None,
+    "flag,refusal",
+    [pytest.param(["--accum_steps", "2"], None, id="accum_steps_2-gradient accumulation"),
+     pytest.param(["--accum_steps", "2", "--dedup_lookup", "on"],
+                  "--dedup_lookup on is incompatible with --accum_steps > 1 "
+                  "(plans index the whole-batch id stream)",
+                  id="accum_steps_2_--dedup_lookup_on-gradient accumulation")],
 )
-def test_cli_refuses_unported_flags(flag, match):
-    with pytest.raises(SystemExit, match=match):
-        train_ctr.main(COMMON + TINY + ["--synthetic", "--steps", "1"] + flag)
+def test_cli_refuses_unported_flags(capsys, tmp_path, monkeypatch, flag, refusal):
+    """No flag is refused for being unported: ``--accum_steps 2`` trains the
+    bf16 DLRM in two microbatches a step, and a run stopped at step 4 and
+    resumed ends bit for bit where the straight run does. Dedup plans index
+    the whole batch, so ``--dedup_lookup on`` with it exits with JAX's
+    message."""
+    if refusal:
+        with pytest.raises(SystemExit) as exc:
+            train_ctr.main(COMMON + TINY + ["--synthetic", "--steps", "1"] + flag)
+        assert str(exc.value) == refusal
+        return
+    from recommender_tpu_torch.core.train import Trainer
+
+    calls = []
+    real = Trainer._accumulate
+    monkeypatch.setattr(Trainer, "_accumulate",
+                        lambda self, *a: calls.append(a[2]) or real(self, *a))
+    base = COMMON + TINY + ACCUM_RESUME + flag
+    straight = train_ctr.main(base + ["--steps", "10"])
+    assert calls == [2] * 10 and straight.step == 10
+    ckpt = ["--checkpoint_dir", str(tmp_path)]
+    assert train_ctr.main(base + ["--steps", "4"] + ckpt).step == 4
+    resumed = train_ctr.main(base + ["--steps", "6", "--resume"] + ckpt)
+    assert resumed.step == 10 and resumed.optimizer.count == 10
+    _assert_same_run(straight, resumed)
+    finals = [m for m in _lines(capsys) if "final" in m]
+    assert finals[0] == finals[2] != finals[1]
+    assert not hasattr(common, "UNPORTED_FLAGS")
 
 
 @pytest.mark.parametrize(
@@ -286,8 +370,7 @@ def test_flags_and_defaults_are_the_jax_entry_points(name):
     if name == "train_ctr":  # the port's: gloo for ranks sharing a card
         assert ours.pop("dist_backend") == ("auto", ("auto", "nccl", "gloo"))
     assert ours == theirs
-    if name == "train_ctr":
-        assert set(common.UNPORTED_FLAGS) <= set(theirs)
+    assert not hasattr(common, "UNPORTED_FLAGS")  # every flag is ported
 
 
 # --------------------------------------------------------------- predict

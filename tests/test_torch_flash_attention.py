@@ -81,11 +81,13 @@ def _port_grads(q, k, v, valid, cot, device="cpu"):
     return [t.detach().cpu().numpy() for t in (o, *(x.grad for x in ts))]
 
 
-@pytest.mark.parametrize("B,L,H,Dh", [(2, 11, 4, 9), (3, 130, 2, 9)])
+@pytest.mark.parametrize("B,L,H,Dh", [(2, 11, 4, 9), (3, 130, 2, 9), (2, 11, 2, 72),
+                                     (1, 130, 1, 128), (2, 11, 1, 130)])
 def test_ref_matches_jax_flash_interpret(pallas_interpret, B, L, H, Dh):
     """L not a multiple of 128 (11, and 130 which spans two 128-blocks),
-    Dh 9, with an all-pad-history row: forward on valid rows, q/k/v
-    gradients on every row."""
+    Dh 9 and the wide 72, 128 and 130 (which JAX pads to 256 lanes), with
+    an all-pad-history row: forward on valid rows, q/k/v gradients on every
+    row."""
     import jax
     import jax.numpy as jnp
 
@@ -148,7 +150,7 @@ def test_pad_queries_attend_to_pad_keys():
 @pytest.mark.parametrize(
     "shape,dtype,valid_shape",
     [
-        ((2, 5, 2, 65), torch.float32, (2, 5)),  # Dh above the kernel's 64
+        ((2, 5, 2, 0), torch.float32, (2, 5)),  # no head dim
         ((2, 5, 2, 8), torch.float32, (2, 4)),  # valid of the wrong shape
         ((2, 5, 2, 8), torch.bfloat16, (2, 5)),  # not f32
         ((2, 0, 2, 8), torch.float32, (2, 0)),  # empty sequence
@@ -161,6 +163,18 @@ def test_flash_mha_rejects_what_the_kernel_does_not_take(shape, dtype, valid_sha
     q = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError):
         fa.flash_mha(q, q, q, torch.ones(valid_shape))
+
+
+@pytest.mark.parametrize("Dh", [65, 128, 130, 300])
+def test_flash_mha_takes_any_head_dim(Dh):
+    """No head dim is refused: Dh past the 64 that the kernels keep in
+    registers runs too (the CUDA kernels in chunks of 64 columns; here the
+    plain version), and the gradients flow."""
+    q, k, v, valid, cot = _inputs(2, 7, 2, Dh, seed=Dh)
+    o, *grads = _port_grads(q, k, v, valid, cot)
+    want = fa.flash_mha_ref(*(torch.tensor(x) for x in (q, k, v, valid))).numpy()
+    np.testing.assert_array_equal(o, want)
+    assert o.shape == (2, 7, 2, Dh) and all(np.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.parametrize("case", ["k_shape", "valid_device", "device_type"])
@@ -392,6 +406,19 @@ _KERNEL_SHAPES = [
     (2, 128, 1, 37),
     (2, 120, 1, 50),
     (2, 128, 1, 64),
+    # wide head dims, in chunks of 64 columns: one chunk and a sliver (72,
+    # 65, 130), whole chunks (128, 256), a width that no 16-byte copy takes
+    # (67, 100 + 2), chunks past the long tile's columns (520)
+    (2, 101, 1, 72),
+    (3, 101, 1, 128),  # BST with item_dim = cat_dim = 64 and one head
+    (2, 64, 1, 128),
+    (2, 200, 2, 65),
+    (2, 130, 1, 130),
+    (2, 101, 2, 256),
+    (2, 90, 1, 67),
+    (2, 150, 1, 102),
+    (2, 16, 1, 200),
+    (2, 33, 1, 520),
 ]
 
 
@@ -407,7 +434,8 @@ def _kernel_cases():
     both routes of the forward and of the backward where the fused one takes
     it. Then BST's shape on every pair of routes with every position valid,
     and with only the target position valid. Together they run every
-    head-dim instantiation of both kernel files."""
+    head-dim instantiation of both kernel files, the wide chunked ones
+    included."""
     dhs = [5, 9, 16, 33, 48, 64]
     shapes = list(_KERNEL_SHAPES)
     for i, L in enumerate((1, 64, 101, 127, 128, 129, 200)):
@@ -499,10 +527,10 @@ def test_fwd_smem_bytes_matches_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,shape", [("fused", (2, 129, 2, 9)), ("long", (2, 5, 2, 65))])
+@pytest.mark.parametrize("route,shape", [("fused", (2, 129, 2, 9)), ("long", (2, 0, 2, 8))])
 def test_forward_refuses_what_its_route_does_not_take(cuda_device, monkeypatch, route, shape):
     """The forward's C entry refuses a shape its route does not take (L past
-    the fused block; Dh past 64, which ``flash_mha`` checks first), and the
+    the fused block; no position, which ``flash_mha`` checks first), and the
     wrapper raises: nothing falls back."""
     monkeypatch.setattr(fa, "fwd_route", lambda *s: route)
     q = torch.zeros(shape, device=cuda_device)
