@@ -88,9 +88,9 @@ Phases, one JSON line each (k2 one per shape):
                   real batch; fused forward and backward), at L 128 (fused)
                   and L 129 (long routes), B 256, and at the TPU probe's
                   B 128, L 1001, H 4 with Dh 9, 64 and 128 (long routes);
-                  then the chunked Dh > 64 kernels at BST's rows with one
-                  head of Dh 128 (fused forward, long backward) and of Dh
-                  72 (fused both ways), and Dh 256 at B 256, H 2: the
+                  then the Dh > 64 kernels at BST's rows with one head of
+                  Dh 128 (fused forward, long backward) and of Dh 72
+                  (fused both ways), and Dh 256 at B 256, H 2: the
                   routes ``fwd_route`` and ``bwd_route`` pick, errors,
                   bitwise repeatability; times of the forward, of forward +
                   backward, of the backward and of each kernel alone
@@ -101,7 +101,8 @@ Phases, one JSON line each (k2 one per shape):
                   ``scaled_dot_product_attention`` with the same mask (the
                   yardstick, and the backend it took); each kernel's bound
                   from bytes and FLOPs, and its share (CUDA events, median
-                  of 25).
+                  of 25); the long backward's registers, local memory bytes
+                  and blocks an SM (``kernel_info``).
 5. train        — 50 DLRM Trainer steps at full width, then ``evaluate`` on
                   20 held-out batches; K1's launch count must equal the steps.
 6. card_cpu     — a small f32-table DLRM for 3 steps from one init on the
@@ -121,7 +122,7 @@ Phases, one JSON line each (k2 one per shape):
                   and on the CPU (its plain version); the losses must agree.
     bst_dh128   — BST on the same data with item_dim = cat_dim = 64 and one
                   head (Dh 128): 30 steps with flash attention (exact K2
-                  launch counts on the chunked kernels: the fused forward,
+                  launch counts on the Dh > 64 kernels: the fused forward,
                   the long backward), then 30 from the same init with
                   plain attention: the losses must agree.
 10. dien_train  — 50 DIEN Trainer steps at full width (f32 tables, the
@@ -290,6 +291,11 @@ runs the distribution phases (28-33) alone, after the build, and
 
 asks two ranks on this card which of the port's four collectives gloo
 takes on CUDA tensors (``probe_gloo_cuda``), and
+
+    python3 chip_smoke.py --k2
+
+runs phase k2 alone (every K2 kernel against ``flash_mha_ref`` at its
+nine cases, with times, bounds and SDPA's), after the build, and
 
     python3 chip_smoke.py --ptxas
 
@@ -917,9 +923,9 @@ def k2_valid(history: np.ndarray, device) -> torch.Tensor:
 def k2_shapes(device, bst_train: dict) -> dict:
     """Phase k2's shapes, key: (case name, valid, heads, head dim, the
     forward's route, the backward's). Above Dh 64 the kernels work in
-    chunks of 64 columns: BST's L 101 with one head of Dh 128 (item_dim =
-    cat_dim = 64) and of the odd Dh 72, the probe's L 1001 at Dh 128, and
-    the wide Dh 256."""
+    chunks of 64 columns (the long backward's blocks on groups of up to 4):
+    BST's L 101 with one head of Dh 128 (item_dim = cat_dim = 64) and of
+    the odd Dh 72, the probe's L 1001 at Dh 128, and the wide Dh 256."""
     def history_valid(max_len, batch):
         gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=max_len, seed=SEED)
         return k2_valid(gen.sample(batch, seed=1)["pos_his_item"], device)
@@ -939,7 +945,7 @@ def k2_shapes(device, bst_train: dict) -> dict:
     }
 
 
-# phase k2's cases at Dh > 64 (the chunked kernels), beside the kernels line
+# phase k2's cases at Dh > 64 (the wide kernels), beside the kernels line
 K2_WIDE_CASES = ("r5_dh128", "bst_dh128", "bst_dh72", "dh256")
 
 
@@ -976,6 +982,19 @@ def k2_bounds(w: dict, head_dim: int) -> dict:
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def k2_long_info(kernel: str, head_dim: int) -> dict:
+    """Registers, local memory bytes a thread (spills and stack) and blocks an
+    SM of the long backward's ``"bwd_dkv"`` or ``"bwd_dq"`` kernel at this
+    head dim, as its launch configures it (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_long_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check(fn(int(kernel == "bwd_dkv"), head_dim, ctypes.addressof(out)) == 0,
+          f"K2 {kernel} info at Dh {head_dim}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
 
 
 def sdpa_backend(q, k, v, mask) -> str:
@@ -1046,6 +1065,8 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
             "dK/dV", fns["bwd_dkv"], device, *common, dk_.data_ptr(), dv_.data_ptr(), *dims))
         kernel_ms["bwd_dq"] = cuda_ms(lambda: fa._launch(
             "dQ", fns["bwd_dq"], device, *common, dq_.data_ptr(), *dims))
+    kernel_info = ({kn: k2_long_info(kn, head_dim) for kn in ("bwd_dkv", "bwd_dq")}
+                   if route == "long" else {})
     o_ref = fa.flash_mha_ref(*qkv, valid)
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_ref, qkv, cot, retain_graph=True))
     del o, o_ref, saved, sq, sk, sv, seg, out, lse, o_, lse_
@@ -1072,7 +1093,8 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
          tolerance=f"|err| <= tol * max(1, max|plain|), tol {tol}",
          bitwise_repeatable=bitwise, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
          fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms,
-         bwd_ms=bwd_ms, kernel_ms=kernel_ms, fwd_long_route=long_route,
+         bwd_ms=bwd_ms, kernel_ms=kernel_ms, kernel_info=kernel_info,
+         fwd_long_route=long_route,
          plain_bwd_ms=plain_bwd_ms, library_backend=backend, library_fwd_rel_err=lib_err,
          library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms,
          library_fwd_bwd_ms=library_fwd_bwd_ms,
@@ -1081,8 +1103,11 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
     for n in names:
         check(rel_err[n] <= tol[n], f"K2 {name}: {n} off by {rel_err[n]} of max|plain|")
     check(bitwise, f"K2 {name}: two launches differ")
+    if head_dim > 64:  # the wide long backward keeps everything in registers
+        for kn, info in kernel_info.items():
+            check(info["local_bytes"] == 0, f"K2 {name}: {kn} uses local memory: {info}")
     return dict(abs_err=abs_err, fwd_route=fwd_route, route=route, fwd_ms=fwd_ms,
-                plain_fwd_ms=plain_fwd_ms,
+                plain_fwd_ms=plain_fwd_ms, kernel_info=kernel_info,
                 kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms, bounds=bounds,
                 library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms)
 
@@ -3797,6 +3822,14 @@ def main() -> int:
         emit("gloo_cuda_probe", torch=torch.__version__, calls=probe_gloo_cuda())
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--k2"]:
+        smi = phase_device()
+        phase_build()
+        for case, valid, heads, head_dim, _, _ in k2_shapes(device, without_negatives(
+                sequence_data()[0])).values():
+            phase_k2(device, case, valid, heads, head_dim)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--dist"]:
         smi = phase_device()
         phase_build()
@@ -3805,7 +3838,7 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         print(f"usage: {sys.argv[0]} [--profile-bst | --profile-dien | --profile-mt-graph | "
-              "--fwd-occupancy | --probe-gloo-cuda | --dist | --ptxas]",
+              "--fwd-occupancy | --probe-gloo-cuda | --dist | --k2 | --ptxas]",
               file=sys.stderr)
         return 2
     smi = phase_device()
@@ -3929,7 +3962,8 @@ def main() -> int:
     }]
     # each K2 kernel at the shape of its main path: the fused forward and
     # backward at BST's, the long routes' at the BST run with history 1,000;
-    # beside them, each at the Dh > 64 cases of its route (the chunked kernels)
+    # beside them, each at the Dh > 64 cases of its route (the wide kernels,
+    # with the long backward's registers, local bytes and blocks an SM)
     for name, kernel, route_key, route, case, errs in (
         ("fwd_fused", "fwd", "fwd_route", "fused", "bst", ("o",)),
         ("fwd_long", "fwd", "fwd_route", "long", "r5_dh9", ("o",)),
@@ -3970,6 +4004,7 @@ def main() -> int:
                     "bound_by": k2[key]["bounds"][kernel]["bound_by"],
                     "library_ms": (k2[key]["library_fwd_ms"] if fwd
                                    else k2[key]["library_bwd_ms"]),
+                    **k2[key]["kernel_info"].get(kernel, {}),
                 } for key in K2_WIDE_CASES if k2[key][route_key] == route},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

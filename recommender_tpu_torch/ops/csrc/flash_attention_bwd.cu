@@ -61,25 +61,33 @@
 //    16 bytes a copy where Dh % 4 == 0.
 // 5. di = rowsum(dO * O) cost four launches in the wrapper. The fused kernel
 //    computes it from dO in shared memory and O.
-// 6. Head dims above 64 (flash_mma.cuh): a warp's own rows as A fragments
-//    and its dK, dV accumulators would not fit its registers, nor the long
-//    tiles shared memory, so a wide Dh runs in chunks of 64 columns. Each
-//    long-route block owns one chunk of its outputs (grid y): for each tile
-//    of 64 rows of the other side it copies the chunks of its own rows and
-//    of the tile's one at a time (its own chunk last), adds S^T and dP^T
-//    (dK/dV) or S and dP (dQ) up in registers, then makes P and dS and the
-//    products on its chunk, which the tiles still hold (70 KB, one copy in
-//    flight a block). The fused route keeps its block: per head, the key
-//    side makes dK and dV a chunk at a time, S^T and dP^T computed again
-//    over every column for each chunk and dS^T kept from the first, and
-//    the query side dQ a chunk at a time from dS^T. Measured on an NVIDIA
-//    H100 80GB HBM3 at 700 W (chip_smoke.py phase k2): the L1001 probe at
-//    Dh 128, H 4: dK/dV 18.7 ms and dQ 14.6 ms alone, 12% and 11% of their
-//    2.17 and 1.63 ms (operations) bounds; BST's rows with one head of Dh
-//    128 (long): 0.69 and 0.54 ms, 14% and 15% of their (bytes) bounds;
-//    Dh 72 fused: 0.65 ms, 11%; Dh 256, B 256, H 2: 1.15 and 0.93 ms, 8%
-//    and 9%. nvcc -Xptxas -v (chip_smoke.py --ptxas, the same card): dK/dV
-//    205 registers, dQ 168, the wide fused kernel 157, no spills.
+// 6. Head dims above 64 (flash_mma.cuh, "Head dims"): a warp's own rows and
+//    its dK, dV accumulators at the whole Dh would not fit its registers, nor
+//    the long tiles shared memory, so a wide Dh runs in chunks of 64 columns.
+//    The fused route keeps its block: per head, the key side makes dK and dV
+//    a chunk at a time, S^T and dP^T computed again over every column for
+//    each chunk and dS^T kept from the first, and the query side dQ a chunk
+//    at a time from dS^T. The long route ("wide long route" below) gives a
+//    block 64 rows and a group of up to 4 chunks (256 columns) of their
+//    outputs, and computes S and dP once per streamed tile over the whole Dh
+//    (the chunked kernels before it did so once per output chunk: 2x the
+//    products at Dh 128, 3x at 256): phase A adds them up chunk by chunk from
+//    a ring of copies in flight (the next tile's, or the next chunk's, load
+//    while this one multiplies), phase B makes the group's outputs from P and
+//    D = dP - di in shared memory. Its 64-column tiles carry no pad (an XOR
+//    swizzle spreads the reads over the banks), so a block holds two own
+//    chunks and four streamed ones (231 KB); copies fill every row and column
+//    outside the inputs with zeros, so the products read without bounds.
+//    Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --k2):
+//    the L1001 probe at Dh 128, H 4: dK/dV 14.9 ms and dQ 12.4 ms alone
+//    (the chunked kernels: 18.7 and 14.6), 15% and 13% of their 2.17 and
+//    1.63 ms (operations) bounds; BST's rows with one head of Dh 128: 0.61
+//    and 0.51 ms (0.69, 0.54), 16% of their (bytes) bounds; Dh 256, B 256,
+//    H 2: 0.86 and 0.64 ms (1.15, 0.93), 11% and 12%. The 3xTF32 mma.sync
+//    products of the two phases take most of it, and the barriers between
+//    them, where none runs, the rest. cudaFuncGetAttributes (the same card):
+//    dK/dV 126 registers and dQ 108 with 16 warps, 246 and 191 with 8, no
+//    local memory, one block an SM.
 // Each output element is written once, by one lane, with no atomics: every
 // launch is bitwise deterministic.
 //
@@ -179,23 +187,6 @@ __device__ __forceinline__ void wide_products(const View& x, const View& z, cons
   for (int kk = 0; kk < ng; ++kk) {
     s.add(load_a(x, r0, 8 * kk, l), load_bt(y, j0, 8 * kk, l));
     dp.add(load_a(z, r0, 8 * kk, l), load_bt(w, j0, 8 * kk, l));
-  }
-}
-
-// The same for the 8 tiles of a long block's streamed side at once
-// (j0 = 8 jt for the live tiles jt), the A fragments split once for all.
-__device__ __forceinline__ void wide_products_tiles(const View& x, const View& z,
-                                                    const View& y, const View& w, int r0,
-                                                    int ng, uint32_t live, Lane l,
-                                                    float (&s)[8][4], float (&dp)[8][4]) {
-  for (int kk = 0; kk < ng; ++kk) {
-    const FragA ax = load_a(x, r0, 8 * kk, l), az = load_a(z, r0, 8 * kk, l);
-#pragma unroll
-    for (int jt = 0; jt < 8; ++jt) {
-      if (!(live >> jt & 1)) continue;
-      mma3(s[jt], ax, load_bt(y, 8 * jt, 8 * kk, l));
-      mma3(dp[jt], az, load_bt(w, 8 * jt, 8 * kk, l));
-    }
   }
 }
 
@@ -621,172 +612,481 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ wide long route
-// Shared memory of a wide long-route block: four chunk tiles ([kTile][kCs]
-// each: the block's own two, the streamed side's two) and three row
-// vectors [kTile].
-__host__ __device__ constexpr int64_t wide_long_bytes() { return 4 * (4LL * kCTile + 3LL * kTile); }
+// Dh > 64: a dK/dV kernel and a dQ kernel of one design. A block owns 64
+// rows of one head (keys for dK/dV, queries for dQ) and a group of NC chunks
+// of kC columns of their outputs: NC = 2 where Dh <= 128, else 4 (256
+// columns); grid y counts the groups (wide_bwd_groups). For each streamed
+// tile of 64 rows of the other side it runs
+// * phase A: S^T and dP^T (dK/dV) or S and dP (dQ) of the 64 x 64 pairs over
+//   the whole head dim, chunk by chunk from a ring in shared memory; half the
+//   warps make S, half dP, each warp 16 rows in registers. Then P and D = dP
+//   - di go to shared memory in the A-fragment order, with which 16 x 8
+//   pieces hold a visible pair;
+// * phase B: the group's outputs in halves of two chunks, each warp 16 rows
+//   of dK or dV (kC columns of a chunk), or of dQ (kC / 2): its A fragments
+//   are P or dS = P D from phase A's pieces, its B fragments the group's
+//   chunks of the streamed rows, which the ring still holds.
+// So S and dP are computed once per (block, tile) up to Dh 256, and once per
+// group above it: twice at Dh 257-512, 3 times at 520.
+//
+// Warps of a block: 16 where a group is 2 chunks; 8 where it is 4, whose
+// dK and dV accumulators (64 floats a lane with 16 warps, besides phase A's
+// 16) spilled within 16 warps' 128 registers a thread, and fit 8 warps' 255.
+__host__ __device__ constexpr int wide_warps(int NC) { return NC == 2 ? 16 : 8; }
+constexpr int kOwnSlots = 2;   // own rows: K and V (dK/dV) or Q and dO (dQ), a chunk each
+constexpr int kTileSlots = 4;  // streamed rows: Q and dO, or K and V, a chunk each
+constexpr int kSwzTile = kTile * kC;  // floats of a swizzled chunk tile
 
-// dK and dV's chunk blockIdx.y (kC columns) of the block's 64 keys. For each
-// tile of 64 queries the block takes the chunks of K, V (its own rows) and
-// Q, dO (the tile's) one by one, adding up S^T and dP^T of its warps in
-// registers, chunk c last; then P^T and dS^T, and dV += P^T dO, dK += dS^T Q
-// on chunk c, which the tiles still hold.
-__global__ void __launch_bounds__(kLongThreads, 2)
+__host__ __device__ constexpr int wide_bwd_group_chunks(int Dh) { return chunks(Dh) <= 2 ? 2 : 4; }
+
+// Blocks in grid y: groups of wide_bwd_group_chunks chunks. Mirrored by
+// ops/flash_attention.py::wide_bwd_groups.
+__host__ __device__ constexpr int wide_bwd_groups(int Dh) {
+  return (chunks(Dh) + wide_bwd_group_chunks(Dh) - 1) / wide_bwd_group_chunks(Dh);
+}
+
+// Shared memory of a wide block at any Dh: the own and streamed rings (two
+// tensors a slot), phase A's pieces (P and D), the row vectors of two
+// streamed tiles (lse, di and seg for dK/dV, seg for dQ) and the pieces'
+// liveness. Mirrored by ops/flash_attention.py::wide_bwd_smem_bytes.
+__host__ __device__ constexpr int64_t wide_bwd_smem_bytes(bool dkv) {
+  return 4LL * ((kOwnSlots + kTileSlots + 1) * 2 * kSwzTile + 2 * (dkv ? 3 : 1) * kTile + 4 * 8);
+}
+
+// A chunk tile without pad: element (r, c) at r * kC + (c ^ 4 (r & 7)). The
+// XOR puts the A reads, the row reads (B = X^T) and the accumulator-order
+// reads (load_b_acc's) of a warp on 32 banks, and keeps each 16-byte piece
+// of a row whole for cp.async.
+__device__ __forceinline__ int swz(int r, int c) { return r * kC + (c ^ ((r & 7) << 2)); }
+
+// cp.async of 16 (4) bytes that writes zeros where !in (src-size 0; src
+// stays a valid address).
+__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_or_zero(void* dst, const void* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// A whole swizzled chunk tile by cp.async: columns [0, w) of rows [row0, row0
+// + n) of one head (base: the offset of (b, 0, h, d0)), zeros in every other
+// row and column. So the products read it without bounds: zeros add nothing.
+// 16 bytes a copy where vec (16 threads a row), else 4 (64 threads a row).
+__device__ __forceinline__ void load_swz_async(float* dst, const float* __restrict__ x,
+                                               int64_t base, int row0, int n, int HD, int w,
+                                               bool vec, int tid, int nthreads) {
+  const int per_row = vec ? kC / 4 : kC, c = (tid % per_row) * (vec ? 4 : 1);
+  const int r0 = tid / per_row, step = nthreads / per_row;
+  const float* src = x + base + (int64_t)(row0 + r0) * HD + c;
+  for (int r = r0; r < kTile; r += step, src += (int64_t)step * HD) {
+    const bool in = r < n && c < w;
+    if (vec)
+      cp_async16_or_zero(dst + swz(r, c), in ? src : x, in);
+    else
+      cp_async4_or_zero(dst + swz(r, c), in ? src : x, in);
+  }
+}
+
+// The ring's schedule. A block's phase-A steps run in one sequence u = t nd +
+// s (tile t, step s); step s takes chunk(s): the chunks outside the group
+// first, then the group's, so that each tile ends with the ring holding the
+// group's streamed chunks for phase B. Step u's copies go to tile slot u %
+// kTileSlots and, unless the own rows stay resident (nd <= kOwnSlots), own
+// slot u % kOwnSlots. They are issued at a barrier once the slots' last users
+// are done: step u - kOwnSlots, and step u - kTileSlots, which, if it held a
+// chunk i of the group, phase B reads until its half i / 2 is done; all the
+// copies issued at one barrier form one cp.async group. A step whose copies
+// an earlier barrier made visible needs no barrier of its own.
+struct Ring {
+  int nd, nng, g0, nh, nt;
+  bool own_resident;
+  int next_t = 0, next_s = 0;  // the next step to issue
+  int visible = 0;             // steps whose copies every thread sees
+  __device__ __forceinline__ int chunk(int s) const {
+    return s >= nng ? g0 + s - nng : s < g0 ? s : s + (nd - nng);
+  }
+  __device__ __forceinline__ int next() const { return next_t * nd + next_s; }
+  __device__ __forceinline__ void advance() {
+    if (++next_s == nd) {
+      next_s = 0;
+      ++next_t;
+    }
+  }
+  // whether the next step may be issued: v phase-A steps and hb phase-B
+  // halves are done
+  __device__ __forceinline__ bool ready(int v, int hb) const {
+    if (next_t >= nt || (!own_resident && next() - kOwnSlots >= v)) return false;
+    int pt = next_t, ps = next_s - kTileSlots;  // the tile slot's last user
+    while (ps < 0) {
+      ps += nd;
+      --pt;
+    }
+    if (pt < 0) return true;
+    return ps < nng ? pt * nd + ps < v : hb > pt * nh + (ps - nng) / 2;
+  }
+};
+
+// Phase A, one chunk of ks steps of 8 columns: acc[i] += X Y_i^T, X the
+// warp's 16 own rows from r0 (A fragments), Y_i the 8 streamed rows at j0 +
+// 8 i (B fragments), live pieces only. Rows r0 + g, r0 + g + 8 and j0 + 8 i
+// + g all swizzle by 4 g, so one column offset a step serves every read.
+template <int NT>
+__device__ __forceinline__ void wide_score_products(const float* x, const float* y, int r0,
+                                                    int j0, int ks, const bool (&live)[NT],
+                                                    Lane l, float (&acc)[NT][4]) {
+  const int sw = 4 * l.g, ra = (r0 + l.g) * kC, rb = (j0 + l.g) * kC;
+#pragma unroll 2
+  for (int kk = 0; kk < ks; ++kk) {
+    const int c = (8 * kk + l.t) ^ sw, c4 = c ^ 4;
+    const FragA a = split_a(x[ra + c], x[ra + 8 * kC + c], x[ra + c4], x[ra + 8 * kC + c4]);
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      if (live[i]) mma3(acc[i], a, split_b(y[rb + 8 * i * kC + c], y[rb + 8 * i * kC + c4]));
+  }
+}
+
+// Phase B, one chunk of one output: acc += A X over the tile's 64 rows, A the
+// warp's pieces jt of P (kDs: P times D, i.e. dS) from phase A, live ones
+// only; X the chunk's columns [c0, c0 + 8 NN) below wc of the streamed rows,
+// read in load_b_acc's order: rows 8 jt + 2 t and 8 jt + 2 t + 1, which
+// swizzle by 8 t and 8 t + 4.
+template <bool kDs, int NN>
+__device__ __forceinline__ void wide_piece_products(const float4* p, const float4* d,
+                                                    const int* live, const float* x, int c0,
+                                                    int wc, Lane l, float (&acc)[NN][4]) {
+  const int lane_id = threadIdx.x & 31;
+  const float* x0 = x + 2 * l.t * kC + l.g;
+  const float* x1 = x + (2 * l.t + 1) * kC + (l.g ^ 4);
+  for (int jt = 0; jt < kTile / 8; ++jt) {
+    if (!live[jt]) continue;
+    float4 f = p[jt * 32 + lane_id];
+    if (kDs) {
+      const float4 e = d[jt * 32 + lane_id];
+      f = make_float4(f.x * e.x, f.y * e.y, f.z * e.z, f.w * e.w);
+    }
+    const FragA a = split_a(f.x, f.y, f.z, f.w);
+    const int row = 8 * jt * kC;
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) {
+      const int cc = row + ((c0 + 8 * nn) ^ (8 * l.t));
+      if (c0 + 8 * nn < wc) mma3(acc[nn], a, split_b(x0[cc], x1[cc]));
+    }
+  }
+}
+
+// What both kernels share: the block's place, its ring and slots, and the
+// roles of its W warps. Phase A: warp w makes S (kind 0) or dP (kind 1, w >=
+// W / 2) for own rows 16 (w % 4) against NT = 64 / W pieces of 8 streamed
+// rows, from row 8 NT (w / 4 % (W / 8)). Phase B: warp w makes own rows 16
+// (w % 4) on CPW = 16 / W group chunks 2 h + w / 8 + j (j < CPW) in half h.
+template <int NC>
+struct WideBlock {
+  static constexpr int W = wide_warps(NC), kThreads = 32 * W, NT = 64 / W, CPW = 16 / W;
+  static constexpr int NH = NC / 2;
+  Where w;
+  int kn, nt;
+  Ring ring;
+  float* own;  // [kOwnSlots][2][kSwzTile], then [kTileSlots][2][kSwzTile]
+  int warp, r, jq, kind;
+
+  __device__ __forceinline__ WideBlock(int L, int H, int Dh, float* smem)
+      : w(where(L, H, Dh)), own(smem) {
+    kn = min(kTile, L - w.row0);
+    nt = (L + kTile - 1) / kTile;
+    const int nd = chunks(Dh), g0 = blockIdx.y * NC, ngc = min(NC, nd - g0);
+    ring = Ring{nd, nd - ngc, g0, NH, nt, nd <= kOwnSlots};
+    warp = threadIdx.x >> 5;
+    r = warp & 3;
+    jq = (warp >> 2) % (W / 8);
+    kind = warp / (W / 2);
+  }
+  __device__ __forceinline__ float* own_slot(int u, int m) const {
+    return own + ((u & (kOwnSlots - 1)) * 2 + m) * kSwzTile;
+  }
+  __device__ __forceinline__ float* tile_slot(int u, int m) const {
+    return own + ((kOwnSlots + (u & (kTileSlots - 1))) * 2 + m) * kSwzTile;
+  }
+  // P and D: [2][4 own slabs][8 streamed pieces][32 lanes]
+  __device__ __forceinline__ float4* pieces() const {
+    return reinterpret_cast<float4*>(own + (kOwnSlots + kTileSlots) * 2 * kSwzTile);
+  }
+  __device__ __forceinline__ float* after_pieces() const {
+    return own + (kOwnSlots + kTileSlots + 1) * 2 * kSwzTile;
+  }
+  // group chunk of the warp's j-th output slab in half h
+  __device__ __forceinline__ int chunk_of(int h, int j) const { return 2 * h + (warp >> 3) + j; }
+  // The next step's copies of its chunk: of x0, x1 (the own rows; where they
+  // stay resident, at steps 0 and 1 only) and of y0, y1 (the tile's rows).
+  __device__ __forceinline__ void copy_step(const float* x0, const float* x1, const float* y0,
+                                            const float* y1, int L, int H, int Dh,
+                                            bool vec) const {
+    const int HD = H * Dh, tid = threadIdx.x, u = ring.next();
+    const int d0 = ring.chunk(ring.next_s) * kC, wd = min(kC, Dh - d0);
+    const int r0 = ring.next_t * kTile, n = min(kTile, L - r0);
+    if (!ring.own_resident || u < kOwnSlots) {
+      load_swz_async(own_slot(u, 0), x0, w.base + d0, w.row0, kn, HD, wd, vec, tid, kThreads);
+      load_swz_async(own_slot(u, 1), x1, w.base + d0, w.row0, kn, HD, wd, vec, tid, kThreads);
+    }
+    load_swz_async(tile_slot(u, 0), y0, w.base + d0, r0, n, HD, wd, vec, tid, kThreads);
+    load_swz_async(tile_slot(u, 1), y1, w.base + d0, r0, n, HD, wd, vec, tid, kThreads);
+  }
+  // Phase A's step u for the warp's piece (S from slots 0, dP from slots 1).
+  __device__ __forceinline__ void products(int u, int st, int Dh, const bool (&live)[NT],
+                                           Lane l, float (&acc)[NT][4]) const {
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) any |= live[i];
+    if (!any) return;
+    const int ks = (min(kC, Dh - ring.chunk(st) * kC) + 7) / 8;
+    wide_score_products<NT>(own_slot(u, kind), tile_slot(u, kind), 16 * r, 8 * NT * jq, ks, live,
+                            l, acc);
+  }
+  // The liveness of the warp's pieces for the tile's seg (n rows).
+  __device__ __forceinline__ void liveness(const RowSeg& rs, const int* seg_t, int n, Lane l,
+                                           bool (&live)[NT]) const {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) live[i] = cols(rs, seg_t, n, 8 * (NT * jq + i), l).live;
+  }
+  // Piece i of the warp's results (4 floats a lane, accumulator order) into
+  // P (kind 0) or D (kind 1), in the A-fragment order of acc_as_a.
+  __device__ __forceinline__ void put_piece(int i, const float (&x)[4]) const {
+    pieces()[((kind * 4 + r) * 8 + NT * jq + i) * 32 + (threadIdx.x & 31)] =
+        make_float4(x[0], x[2], x[1], x[3]);
+  }
+};
+
+// dK and dV of the block's 64 keys on its group of NC chunks; the queries
+// stream through in tiles of 64. Phase A makes S^T and dP^T; phase B's warp
+// w makes dV += P^T dO (w / 4 even) or dK += dS^T Q.
+template <int NC>
+__global__ void __launch_bounds__(32 * wide_warps(NC), 1)
 flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const int* __restrict__ seg,
                           const float* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ di, float* __restrict__ dk,
                           float* __restrict__ dv, int L, int H, int Dh, float scale, bool vec) {
+  using Blk = WideBlock<NC>;
+  constexpr int NH = Blk::NH, NT = Blk::NT, CPW = Blk::CPW;
   extern __shared__ float4 smem[];
-  float* kt = reinterpret_cast<float*>(smem);
-  float* vt = kt + kCTile;
-  float* qt = vt + kCTile;
-  float* dot = qt + kCTile;
-  float* lse_s = dot + kCTile;  // [kTile], then times log2 e
-  float* di_s = lse_s + kTile;
-  int* seg_s = reinterpret_cast<int*>(di_s + kTile);
-  const Where w = where(L, H, Dh);
-  const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
-  const int kn = min(kTile, L - w.row0), nt = (L + kTile - 1) / kTile;
-  const int nd = chunks(Dh), c0 = blockIdx.y * kC, wc = min(kC, Dh - c0);
-  const int64_t seg_b = (int64_t)w.b * L;
+  Blk blk(L, H, Dh, reinterpret_cast<float*>(smem));
+  float* vecs = blk.after_pieces();                            // [2][lse, di, seg][kTile]
+  int* live_s = reinterpret_cast<int*>(vecs + 2 * 3 * kTile);  // [4][8]
+  const int tid = threadIdx.x, nd = blk.ring.nd, ngc = nd - blk.ring.nng;
+  const int64_t seg_b = (int64_t)blk.w.b * L;
   const Lane l = lane();
   const float c2 = scale * kLog2e;
 
-  zero_smem(smem, (int)(wide_long_bytes() / 16), tid, kLongThreads);
   RowSeg own;
-  own.set(seg + seg_b + w.row0, r0, kn, l);
-  Acc<kC> dka, dva;
-  zero<kC>(dka);
-  zero<kC>(dva);
-  for (int t = 0; t < nt; ++t) {
-    const int q0 = t * kTile, n = min(kTile, L - q0);
-    float s[8][4] = {}, dp[8][4] = {};
-    uint32_t live = 0;
-    for (int i = 0; i < nd; ++i) {
-      const int d0 = chunk_at(i, blockIdx.y, nd) * kC, wd = min(kC, Dh - d0);
-      __syncthreads();  // every warp is done with the tiles
-      load_chunk_async(kt, k, w.base, d0, w.row0, kn, HD, wd, vec, tid);
-      load_chunk_async(vt, v, w.base, d0, w.row0, kn, HD, wd, vec, tid);
-      load_chunk_async(qt, q, w.base, d0, q0, n, HD, wd, vec, tid);
-      load_chunk_async(dot, dout, w.base, d0, q0, n, HD, wd, vec, tid);
-      if (i == 0)
-        for (int e = tid; e < n; e += kLongThreads) {
-          cp_async4(lse_s + e, lse + w.rows + q0 + e);
-          cp_async4(di_s + e, di + w.rows + q0 + e);
-          cp_async4(seg_s + e, seg + seg_b + q0 + e);
+  own.set(seg + seg_b + blk.w.row0, 16 * blk.r, blk.kn, l);
+  auto issue = [&](int v_done, int hb) {
+    bool any = false;
+    for (; blk.ring.ready(v_done, hb); blk.ring.advance(), any = true) {
+      blk.copy_step(k, v, q, dout, L, H, Dh, vec);
+      if (blk.ring.next_s == 0) {
+        const int t = blk.ring.next_t, q0 = t * kTile, n = min(kTile, L - q0);
+        float* vs = vecs + (t & 1) * 3 * kTile;
+        for (int e = tid; e < n; e += Blk::kThreads) {
+          cp_async4(vs + e, lse + blk.w.rows + q0 + e);
+          cp_async4(vs + kTile + e, di + blk.w.rows + q0 + e);
+          cp_async4(vs + 2 * kTile + e, seg + seg_b + q0 + e);
         }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (i == 0) {  // the tiles with a visible pair; lse2 for the last chunk (nd >= 2)
-#pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
-          if (8 * jt < n && cols(own, seg_s, n, 8 * jt, l).live) live |= 1u << jt;
-        for (int e = tid; e < n; e += kLongThreads) lse_s[e] *= kLog2e;
       }
-      wide_products_tiles(View{kt, kCs, kn, wd}, View{vt, kCs, kn, wd}, View{qt, kCs, n, wd},
-                          View{dot, kCs, n, wd}, r0, (wd + 7) / 8, live, l, s, dp);
     }
-    const View qc{qt, kCs, n, wc}, doc{dot, kCs, n, wc};
+    if (any) cp_async_commit();
+  };
+  issue(0, 0);
+
+  const bool dkw = (blk.warp >> 2) & 1;  // phase B: dK += dS^T Q, else dV += P^T dO
+  float acc[NH][CPW][kC / 8][4] = {};
+  for (int t = 0; t < blk.nt; ++t) {
+    const int n = min(kTile, L - t * kTile);
+    const float* lse_t = vecs + (t & 1) * 3 * kTile;
+    const float* di_t = lse_t + kTile;
+    const int* seg_t = reinterpret_cast<const int*>(lse_t + 2 * kTile);
+    float sd[NT][4] = {};  // S^T or dP^T
+    bool live[NT];
+    for (int st = 0; st < nd; ++st) {
+      const int u = t * nd + st;
+      // a barrier where step u's copies are not yet visible (then every copy
+      // issued is waited for) or where the steps done free a slot
+      const bool wait = st == 0 || u >= blk.ring.visible;
+      if (wait || blk.ring.ready(u, t * NH)) {
+        if (wait) cp_async_wait<0>();
+        __syncthreads();
+        if (wait) blk.ring.visible = blk.ring.next();
+        issue(u, t * NH);
+      }
+      if (st == 0) blk.liveness(own, seg_t, n, l, live);
+      blk.products(u, st, Dh, live, l, sd);
+    }
 #pragma unroll
-    for (int jt = 0; jt < 8; ++jt) {
-      if (!(live >> jt & 1)) continue;
-      float p[4], ds[4];
-      key_side_probs(own, cols(own, seg_s, n, 8 * jt, l), s[jt], dp[jt], lse_s, di_s, n,
-                     8 * jt, c2, l, p, ds);
-      const FragA pa = acc_as_a(p), da = acc_as_a(ds);
+    for (int i = 0; i < NT; ++i) {
+      const int j0 = 8 * (NT * blk.jq + i);
+      if (blk.kind == 0 && tid % 32 == 0) live_s[blk.r * 8 + j0 / 8] = live[i];
+      if (!live[i]) continue;
+      float x[4];
+      if (blk.kind == 0) {  // P^T
+        const Cols c = cols(own, seg_t, n, j0, l);
 #pragma unroll
-      for (int nn = 0; nn < kC / 8; ++nn) {
-        if (8 * nn >= wc) break;
-        mma3(dva[nn], pa, load_b_acc(doc, 8 * jt, 8 * nn, l));
-        mma3(dka[nn], da, load_b_acc(qc, 8 * jt, 8 * nn, l));
+        for (int e = 0; e < 4; ++e) {
+          const int ri = e >> 1, ii = e & 1, j = min(j0 + 2 * l.t + ii, n - 1);
+          const bool on = own.ok[ri] && c.ok[ii] && c.seg[ii] == own.seg[ri];
+          x[e] = on ? exp2f(fmaf(sd[i][e], c2, -lse_t[j] * kLog2e)) : 0.f;
+        }
+      } else {  // D^T = dP^T - di
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = sd[i][e] - di_t[min(j0 + 2 * l.t + (e & 1), n - 1)];
+      }
+      blk.put_piece(i, x);
+    }
+    __syncthreads();
+    issue((t + 1) * nd, t * NH);
+    const float4* p = blk.pieces() + blk.r * 8 * 32;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      if (h > 0) {
+        __syncthreads();
+        issue((t + 1) * nd, t * NH + h);
+      }
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const int ci = blk.chunk_of(h, j);
+        if (ci >= ngc) continue;
+        const int u = t * nd + blk.ring.nng + ci, wc = min(kC, Dh - (blk.ring.g0 + ci) * kC);
+        if (dkw)
+          wide_piece_products<true>(p, p + 4 * 8 * 32, live_s + blk.r * 8, blk.tile_slot(u, 0),
+                                    0, wc, l, acc[h][j]);
+        else
+          wide_piece_products<false>(p, p, live_s + blk.r * 8, blk.tile_slot(u, 1), 0, wc, l,
+                                     acc[h][j]);
       }
     }
   }
-  store_acc<kC>(dk, w.base + c0, HD, w.row0 + r0, L, wc, dka, scale, l);
-  store_acc<kC>(dv, w.base + c0, HD, w.row0 + r0, L, wc, dva, 1.f, l);
+  const int HD = H * Dh;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < CPW; ++j) {
+      const int ci = blk.chunk_of(h, j);
+      if (ci >= ngc) continue;
+      const int c0 = (blk.ring.g0 + ci) * kC;
+      store_acc<kC>(dkw ? dk : dv, blk.w.base + c0, HD, blk.w.row0 + 16 * blk.r, L, Dh - c0,
+                    acc[h][j], dkw ? scale : 1.f, l);
+    }
 }
 
-// dQ's chunk blockIdx.y of the block's 64 queries: for each tile of 64 keys
-// the chunks of Q, dO (its own rows) and K, V (the tile's) one by one, S and
-// dP added up in registers, chunk c last; then dS and dQ += dS K on chunk c.
-__global__ void __launch_bounds__(kLongThreads, 2)
+// dQ of the block's 64 queries on its group of NC chunks; the keys stream
+// through in tiles of 64. Phase A makes S and dP; phase B's warp w makes dQ
+// += dS K on columns kC / 2 (w / 4 % 2) of its chunks.
+template <int NC>
+__global__ void __launch_bounds__(32 * wide_warps(NC), 1)
 flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const int* __restrict__ seg,
                          const float* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ di, float* __restrict__ dq, int L, int H,
                          int Dh, float scale, bool vec) {
+  using Blk = WideBlock<NC>;
+  constexpr int NH = Blk::NH, NT = Blk::NT, CPW = Blk::CPW, kHalf = kC / 2;
   extern __shared__ float4 smem[];
-  float* qt = reinterpret_cast<float*>(smem);
-  float* dot = qt + kCTile;
-  float* kt = dot + kCTile;
-  float* vt = kt + kCTile;
-  int* seg_s = reinterpret_cast<int*>(vt + kCTile);
-  const Where w = where(L, H, Dh);
-  const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
-  const int qn = min(kTile, L - w.row0), nt = (L + kTile - 1) / kTile;
-  const int nd = chunks(Dh), c0 = blockIdx.y * kC, wc = min(kC, Dh - c0);
-  const int64_t seg_b = (int64_t)w.b * L;
+  Blk blk(L, H, Dh, reinterpret_cast<float*>(smem));
+  int* seg_s = reinterpret_cast<int*>(blk.after_pieces());  // [2][kTile]
+  int* live_s = seg_s + 2 * kTile;                           // [4][8]
+  const int tid = threadIdx.x, nd = blk.ring.nd, ngc = nd - blk.ring.nng;
+  const int64_t seg_b = (int64_t)blk.w.b * L;
   const Lane l = lane();
   const float c2 = scale * kLog2e;
 
-  zero_smem(smem, (int)(wide_long_bytes() / 16), tid, kLongThreads);
   RowSeg own;
-  own.set(seg + seg_b + w.row0, r0, qn, l);
-  float lse2[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = min(w.row0 + r0 + l.g + 8 * r, L - 1);
-    lse2[r] = lse[w.rows + row] * kLog2e;
-    di_r[r] = di[w.rows + row];
-  }
-  Acc<kC> dqa;
-  zero<kC>(dqa);
-  for (int t = 0; t < nt; ++t) {
-    const int k0 = t * kTile, n = min(kTile, L - k0);
-    float s[8][4] = {}, dp[8][4] = {};
-    uint32_t live = 0;
-    for (int i = 0; i < nd; ++i) {
-      const int d0 = chunk_at(i, blockIdx.y, nd) * kC, wd = min(kC, Dh - d0);
-      __syncthreads();  // every warp is done with the tiles
-      load_chunk_async(qt, q, w.base, d0, w.row0, qn, HD, wd, vec, tid);
-      load_chunk_async(dot, dout, w.base, d0, w.row0, qn, HD, wd, vec, tid);
-      load_chunk_async(kt, k, w.base, d0, k0, n, HD, wd, vec, tid);
-      load_chunk_async(vt, v, w.base, d0, k0, n, HD, wd, vec, tid);
-      if (i == 0)
-        for (int e = tid; e < n; e += kLongThreads) cp_async4(seg_s + e, seg + seg_b + k0 + e);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (i == 0)
-#pragma unroll
-        for (int jt = 0; jt < 8; ++jt)
-          if (8 * jt < n && cols(own, seg_s, n, 8 * jt, l).live) live |= 1u << jt;
-      wide_products_tiles(View{qt, kCs, qn, wd}, View{dot, kCs, qn, wd}, View{kt, kCs, n, wd},
-                          View{vt, kCs, n, wd}, r0, (wd + 7) / 8, live, l, s, dp);
+  own.set(seg + seg_b + blk.w.row0, 16 * blk.r, blk.kn, l);
+  auto issue = [&](int v_done, int hb) {
+    bool any = false;
+    for (; blk.ring.ready(v_done, hb); blk.ring.advance(), any = true) {
+      blk.copy_step(q, dout, k, v, L, H, Dh, vec);
+      if (blk.ring.next_s == 0) {
+        const int t = blk.ring.next_t, k0 = t * kTile, n = min(kTile, L - k0);
+        for (int e = tid; e < n; e += Blk::kThreads)
+          cp_async4(seg_s + (t & 1) * kTile + e, seg + seg_b + k0 + e);
+      }
     }
-    const View kc{kt, kCs, n, wc};
+    if (any) cp_async_commit();
+  };
+  issue(0, 0);
+
+  const int cb = ((blk.warp >> 2) & 1) * kHalf;  // the warp's columns of its chunks
+  float acc[NH][CPW][kHalf / 8][4] = {};
+  for (int t = 0; t < blk.nt; ++t) {
+    const int n = min(kTile, L - t * kTile);
+    const int* seg_t = seg_s + (t & 1) * kTile;
+    float sd[NT][4] = {};  // S or dP
+    bool live[NT];
+    for (int st = 0; st < nd; ++st) {
+      const int u = t * nd + st;
+      // a barrier where step u's copies are not yet visible (then every copy
+      // issued is waited for) or where the steps done free a slot
+      const bool wait = st == 0 || u >= blk.ring.visible;
+      if (wait || blk.ring.ready(u, t * NH)) {
+        if (wait) cp_async_wait<0>();
+        __syncthreads();
+        if (wait) blk.ring.visible = blk.ring.next();
+        issue(u, t * NH);
+      }
+      if (st == 0) blk.liveness(own, seg_t, n, l, live);
+      blk.products(u, st, Dh, live, l, sd);
+    }
 #pragma unroll
-    for (int jt = 0; jt < 8; ++jt) {
-      if (!(live >> jt & 1)) continue;
-      const Cols c = cols(own, seg_s, n, 8 * jt, l);
-      float ds[4];
+    for (int i = 0; i < NT; ++i) {
+      const int j0 = 8 * (NT * blk.jq + i);
+      if (blk.kind == 0 && tid % 32 == 0) live_s[blk.r * 8 + j0 / 8] = live[i];
+      if (!live[i]) continue;
+      float x[4];
+      const Cols c = cols(own, seg_t, n, j0, l);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = e & 1;
-        const bool on = own.ok[r] && c.ok[i] && c.seg[i] == own.seg[r];
-        ds[e] = on ? exp2f(fmaf(s[jt][e], c2, -lse2[r])) * (dp[jt][e] - di_r[r]) : 0.f;
+        const int ri = e >> 1, ii = e & 1;
+        const int64_t row = blk.w.rows + min(blk.w.row0 + 16 * blk.r + l.g + 8 * ri, L - 1);
+        const bool on = own.ok[ri] && c.ok[ii] && c.seg[ii] == own.seg[ri];
+        x[e] = blk.kind == 0 ? (on ? exp2f(fmaf(sd[i][e], c2, -lse[row] * kLog2e)) : 0.f)
+                             : sd[i][e] - di[row];  // P, or D = dP - di
       }
-      const FragA da = acc_as_a(ds);
+      blk.put_piece(i, x);
+    }
+    __syncthreads();
+    issue((t + 1) * nd, t * NH);
+    const float4* p = blk.pieces() + blk.r * 8 * 32;
 #pragma unroll
-      for (int nn = 0; nn < kC / 8; ++nn) {
-        if (8 * nn >= wc) break;
-        mma3(dqa[nn], da, load_b_acc(kc, 8 * jt, 8 * nn, l));
+    for (int h = 0; h < NH; ++h) {
+      if (h > 0) {
+        __syncthreads();
+        issue((t + 1) * nd, t * NH + h);
+      }
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) {
+        const int ci = blk.chunk_of(h, j);
+        if (ci >= ngc) continue;
+        const int u = t * nd + blk.ring.nng + ci, wc = min(kC, Dh - (blk.ring.g0 + ci) * kC);
+        wide_piece_products<true>(p, p + 4 * 8 * 32, live_s + blk.r * 8, blk.tile_slot(u, 0), cb,
+                                  wc, l, acc[h][j]);  // dQ += dS K
       }
     }
   }
-  store_acc<kC>(dq, w.base + c0, HD, w.row0 + r0, L, wc, dqa, scale, l);
+  const int HD = H * Dh;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < CPW; ++j) {
+      const int ci = blk.chunk_of(h, j);
+      if (ci >= ngc) continue;
+      const int c0 = (blk.ring.g0 + ci) * kC + cb;
+      store_acc<kHalf>(dq, blk.w.base + c0, HD, blk.w.row0 + 16 * blk.r, L, Dh - c0,
+                       acc[h][j], scale, l);
+    }
 }
 
 // ------------------------------------------------------------ host side
@@ -835,16 +1135,65 @@ struct Launch {
                     a.seg, a.o, a.dout, a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
       return;
     }
-    const bool vec = vec4 && a.Dh % 4 == 0;
     const dim3 grid((unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H),
-                    (unsigned)chunks(a.Dh));
-    if (which == kDkv)
-      launch_kernel(flash_bwd_dkv_wide_kernel, grid, kLongThreads, wide_long_bytes(), s, a.q,
-                    a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dk, a.dv, a.L, a.H, a.Dh, a.scale,
-                    vec);
+                    (unsigned)wide_bwd_groups(a.Dh));
+    if (wide_bwd_group_chunks(a.Dh) == 2)
+      run_wide_long<2>(which, a, s, grid, vec4 && a.Dh % 4 == 0);
     else
-      launch_kernel(flash_bwd_dq_wide_kernel, grid, kLongThreads, wide_long_bytes(), s, a.q,
-                    a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dq, a.L, a.H, a.Dh, a.scale, vec);
+      run_wide_long<4>(which, a, s, grid, vec4 && a.Dh % 4 == 0);
+  }
+
+  template <int NC>
+  static void run_wide_long(Which which, const Args& a, cudaStream_t s, dim3 grid, bool vec) {
+    if (which == kDkv)
+      launch_kernel(flash_bwd_dkv_wide_kernel<NC>, grid, 32 * wide_warps(NC),
+                    wide_bwd_smem_bytes(true),
+                    s, a.q, a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dk, a.dv, a.L, a.H, a.Dh,
+                    a.scale, vec);
+    else
+      launch_kernel(flash_bwd_dq_wide_kernel<NC>, grid, 32 * wide_warps(NC),
+                    wide_bwd_smem_bytes(false),
+                    s, a.q, a.k, a.v, a.seg, a.dout, a.lse, a.di, a.dq, a.L, a.H, a.Dh, a.scale,
+                    vec);
+  }
+};
+
+// Registers, local memory (spills and stack) bytes a thread and blocks an SM
+// of a long-route kernel, as the launch configures it.
+template <typename Kernel>
+void kernel_info(Kernel kernel, int threads, int64_t smem, int* out) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  cudaFuncAttributes attr{};
+  cudaFuncGetAttributes(&attr, kernel);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, threads, (size_t)smem);
+}
+
+template <int DP, bool kTail4>
+struct Info {
+  static void run(Which which, int, int* out) {
+    if (which == kDkv)
+      kernel_info(flash_bwd_dkv_kernel<DP, kTail4>, kLongThreads, long_bytes<DP>(), out);
+    else
+      kernel_info(flash_bwd_dq_kernel<DP, kTail4>, kLongThreads, long_bytes<DP>(), out);
+  }
+  static void run_wide(Which which, int Dh, int* out) {
+    if (wide_bwd_group_chunks(Dh) == 2)
+      by_group<2>(which, out);
+    else
+      by_group<4>(which, out);
+  }
+  template <int NC>
+  static void by_group(Which which, int* out) {
+    if (which == kDkv)
+      kernel_info(flash_bwd_dkv_wide_kernel<NC>, 32 * wide_warps(NC), wide_bwd_smem_bytes(true),
+                  out);
+    else
+      kernel_info(flash_bwd_dq_wide_kernel<NC>, 32 * wide_warps(NC), wide_bwd_smem_bytes(false),
+                  out);
   }
 };
 
@@ -923,4 +1272,23 @@ extern "C" int rtt_flash_attention_bwd_dq(const void* q, const void* k, const vo
   a.dq = static_cast<float*>(dq);
   a.B = B; a.L = L; a.H = H; a.Dh = Dh; a.scale = scale;
   return dispatch(kDq, a, stream);
+}
+
+// The wide long route's column groups at Dh (blocks in grid y; 0 for Dh <=
+// 64) and the shared memory of its dK/dV (dkv != 0) or dQ block, as
+// ops/flash_attention.py counts them.
+extern "C" int rtt_flash_attention_bwd_wide_groups(int Dh) {
+  return Dh > kNarrowMaxDh ? wide_bwd_groups(Dh) : 0;
+}
+
+extern "C" long long rtt_flash_attention_bwd_wide_smem(int dkv) {
+  return wide_bwd_smem_bytes(dkv != 0);
+}
+
+// Registers, local memory bytes a thread and blocks an SM (out[0..2]) of the
+// long route's dK/dV (dkv != 0) or dQ kernel at Dh.
+extern "C" int rtt_flash_attention_bwd_long_info(int dkv, int Dh, int* out) {
+  if (Dh < 1) return (int)cudaErrorInvalidValue;
+  by_head_dim<Info>(Dh, dkv ? kDkv : kDq, Dh, out);
+  return (int)cudaGetLastError();
 }

@@ -8,12 +8,15 @@
 // registers (by_head_dim). Dh > 64 ("wide") would not fit there: at DP 128
 // the rows and the accumulators alone take ~200 registers, and a long
 // block's double-buffered 64-row tiles 135 KB (over 227 KB at 256). So a
-// wide Dh is cut into chunks of kC = 64 columns: the products over Dh
+// wide Dh is cut into chunks of kC = 64 columns, and the products over Dh
 // (S = Q K^T, dP = dO V^T) add up chunk by chunk, their A rows read from
-// shared memory, and each output (O, dK and dV, dQ) is made kC columns at a
-// time, the products over Dh computed again for each chunk. A long block
-// holds one chunk of each tile it needs ([kTile][kCs] floats), so its
-// shared memory and registers do not grow with Dh: any Dh >= 1 runs.
+// shared memory. The forward and the fused backward make each output (O,
+// dK and dV, dQ) kC columns at a time, the products over Dh computed again
+// for each chunk; a long forward block holds one chunk of each tile it
+// needs ([kTile][kCs] floats). The long backward's two kernels give a block
+// a group of up to 4 output chunks and compute S and dP once per streamed
+// tile (flash_attention_bwd.cu, "wide long route"). Shared memory and
+// registers do not grow with Dh: any Dh >= 1 runs.
 //
 // Layout of every tensor as the kernels see it: q, k, v, o and their
 // gradients f32 [B, L, H, Dh] (heads-last, contiguous); seg int32 [B, L];

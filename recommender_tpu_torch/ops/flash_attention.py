@@ -26,8 +26,10 @@ Both sets of kernels run on the tensor cores at f32 accuracy (3xTF32).
 Each file instantiates its kernels by head dim: Dh up to 64 padded to a
 multiple of 8, the rows a warp owns kept in registers; any wider Dh in
 chunks of 64 columns (``csrc/flash_mma.cuh``, "Head dims"), on both routes
-and with the same shared-memory counts, so the routes do not depend on the
-instantiation.
+and with the same fused shared-memory counts, so the routes do not depend
+on the instantiation. Above Dh 64 the long backward's blocks own a group
+of output columns (``wide_bwd_groups``) and a fixed shared memory
+(``wide_bwd_smem_bytes``).
 
 Semantics are the TPU kernel's ``SegmentIds(seg, seg)`` with
 ``seg = valid``: key j is visible to query i iff ``valid[b, i] ==
@@ -85,6 +87,32 @@ def fused_smem_bytes(L: int, H: int, Dh: int) -> int:
     ``csrc/flash_attention_bwd.cu``."""
     lds = -(-L // 16) * 16 + 8
     return 4 * (4 * _span(L, H, Dh) + L * lds + 2 * H * L + L)
+
+
+def wide_bwd_groups(Dh: int) -> int:
+    """Blocks in grid y of the long backward's two kernels above Dh 64 (0 at
+    or below it): column groups of 2 chunks of 64 up to Dh 128, else of 4
+    (256 columns). A block computes S and dP over the whole head dim once per
+    streamed tile, so this is how many times each is computed. The same
+    count as ``rtt_flash_attention_bwd_wide_groups`` in
+    ``csrc/flash_attention_bwd.cu``."""
+    if Dh <= 64:
+        return 0
+    chunks = -(-Dh // 64)
+    per_group = 2 if chunks <= 2 else 4
+    return -(-chunks // per_group)
+
+
+def wide_bwd_smem_bytes(kernel: str) -> int:
+    """Shared memory of one block of the long backward's ``"dkv"`` or
+    ``"dq"`` kernel above Dh 64, at any Dh: a ring of 2 own-row and 4
+    streamed-row slots, each two [64, 64] chunk tiles; phase A's two [64,
+    64] results (P and D = dP - di); the row vectors of two streamed tiles
+    (lse, di and seg, or seg) and the pieces' liveness [4, 8]. The same
+    count as ``wide_bwd_smem_bytes`` in ``csrc/flash_attention_bwd.cu``."""
+    vectors = {"dkv": 3, "dq": 1}[kernel]
+    tile = 64 * 64
+    return 4 * ((2 + 4 + 1) * 2 * tile + 2 * vectors * 64 + 4 * 8)
 
 
 def _route(L: int, smem: int) -> str:

@@ -307,6 +307,26 @@ def test_fused_smem_bytes_at_bst_and_at_the_limit():
     assert {fa.bwd_route(*d) for d in dims} == {"fused", "long"}
 
 
+@pytest.mark.parametrize("Dh,groups", [(64, 0), (65, 1), (128, 1), (129, 1), (256, 1),
+                                       (257, 2), (320, 2), (512, 2), (520, 3)])
+def test_wide_bwd_groups_at_each_boundary(Dh, groups):
+    """The long backward's blocks above Dh 64 own 2 chunks of 64 columns up
+    to Dh 128, else 4 (256 columns): one group, so S and dP are computed once
+    per (block, tile), up to Dh 256; 2 at 257-512; 3 at 520."""
+    assert fa.wide_bwd_groups(Dh) == groups
+
+
+@pytest.mark.parametrize("kernel,nbytes", [("dkv", 231_040), ("dq", 230_016)])
+def test_wide_bwd_smem_bytes_fit_one_block(kernel, nbytes):
+    """6 ring slots of two 16 KB chunk tiles, phase A's P and D (16 KB
+    each), two tiles' row vectors (lse, di and seg, or seg) and 32 liveness
+    flags: within the 227 KB a block may use, at every Dh."""
+    tile = 64 * 64 * 4
+    vectors = 3 if kernel == "dkv" else 1
+    assert fa.wide_bwd_smem_bytes(kernel) == 12 * tile + 2 * tile + 2 * vectors * 256 + 128
+    assert fa.wide_bwd_smem_bytes(kernel) == nbytes <= fa.MAX_BLOCK_SMEM
+
+
 def _tf32_hi(x):
     """The kernel's split of f32 x: hi = x rounded to TF32's 10 mantissa bits."""
     b = np.ascontiguousarray(x, np.float32).view(np.uint32)
@@ -419,6 +439,13 @@ _KERNEL_SHAPES = [
     (2, 150, 1, 102),
     (2, 16, 1, 200),
     (2, 33, 1, 520),
+    # the long backward's column groups (wide_bwd_groups): the last Dh of one
+    # group of 4 chunks (256, above), the first of two (257: a 1-column
+    # group), two whole groups of 4 + 1 chunks (320); 16 streamed tiles
+    # through the ring at H 2 (1001)
+    (2, 101, 1, 257),
+    (2, 70, 1, 320),
+    (2, 1001, 2, 128),
 ]
 
 
@@ -451,6 +478,9 @@ def _kernel_cases():
         for bwd in ("fused", "long"):
             for valid in ("all", "target_only"):
                 cases.append((8, 101, 4, 9, fwd, bwd, valid))
+    for valid in ("all", "target_only"):  # the wide long backward, every piece live or few
+        cases.append((4, 101, 1, 128, "fused", "long", valid))
+        cases.append((4, 200, 2, 128, "long", "long", valid))
     return cases
 
 
@@ -501,6 +531,58 @@ def test_kernels_are_bitwise_repeatable_and_counted(cuda_device, monkeypatch, L,
         assert np.array_equal(a, b)
     want = _launched(fwd_route, bwd_route, times=2)
     assert _counts() == {c: n[c] + want[c] for c in _COUNTERS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,Dh", [(2, 1001, 2, 128), (2, 101, 2, 256), (2, 101, 1, 257),
+                                      (2, 70, 1, 320)])
+def test_wide_backward_is_bitwise_repeatable_and_counted(cuda_device, monkeypatch, B, L, H, Dh):
+    """The long backward above Dh 64 (one and two column groups, 16 streamed
+    tiles) gives the same bits twice, with one dK/dV and one dQ launch each."""
+    monkeypatch.setattr(fa, "bwd_route", lambda *shape: "long")
+    fwd_route = fa.fwd_route(L, H, Dh)
+    q, k, v, valid, _ = _inputs(B, L, H, Dh, seed=Dh)
+    cot = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    n = _counts()
+    first = _port_grads(q, k, v, valid, cot, device=cuda_device)
+    second = _port_grads(q, k, v, valid, cot, device=cuda_device)
+    for a, b in zip(first, second):
+        assert np.array_equal(a, b)
+    want = _launched(fwd_route, "long", times=2)
+    assert _counts() == {c: n[c] + want[c] for c in _COUNTERS}
+
+
+@pytest.mark.cuda
+def test_wide_bwd_counts_match_the_kernel(cuda_device):
+    """The Python counts of the wide long backward's column groups and
+    shared memory are the ones the kernels launch with."""
+    import ctypes
+
+    lib = _build.load("flash_attention_bwd")
+    groups, smem = lib.rtt_flash_attention_bwd_wide_groups, lib.rtt_flash_attention_bwd_wide_smem
+    groups.argtypes, groups.restype = [ctypes.c_int], ctypes.c_int
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_longlong
+    for Dh in (1, 64, 65, 72, 128, 129, 200, 256, 257, 320, 512, 513, 520, 1000):
+        assert groups(Dh) == fa.wide_bwd_groups(Dh)
+    assert smem(1) == fa.wide_bwd_smem_bytes("dkv")
+    assert smem(0) == fa.wide_bwd_smem_bytes("dq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("Dh", [128, 256])
+def test_wide_bwd_kernels_do_not_spill(cuda_device, kernel, Dh):
+    """Each wide long-route kernel (2 and 4 chunks a group) keeps its
+    accumulators in registers (no local memory: no spills, no stack) and
+    gets one block an SM."""
+    import ctypes
+
+    fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_long_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    assert fn(int(kernel == "dkv"), Dh, ctypes.addressof(out)) == 0
+    _, local_bytes, blocks = out
+    assert local_bytes == 0 and blocks == 1
 
 
 @pytest.mark.cuda

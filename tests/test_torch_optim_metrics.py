@@ -43,8 +43,8 @@ def _run_both(dtypes, steps, lr=1e-2, seed=0):
     jparams = {k: jnp.asarray(v).astype(jnp.dtype(dt[k])) for k, v in init.items()}
     opt = jax_adam_sr(lr, seed=seed)
     jstate = opt.init(jparams)
-    tparams = [
-        torch.nn.Parameter(torch.from_numpy(init[k]).to(getattr(torch, dt[k])))
+    tparams = [  # copies: jnp.asarray may alias an aligned numpy buffer
+        torch.nn.Parameter(torch.tensor(init[k]).to(getattr(torch, dt[k])))
         for k in "abc"
     ]
     topt = AdamSR(tparams, lr=lr, seed=seed)

@@ -57,7 +57,9 @@ def _run(optimizer, dtypes, scales, stochastic=False):
     jcfg = JaxTrainConfig(learning_rate=LR, optimizer=optimizer, lr_scales=scales)
     jopt = jax_make_optimizer(jcfg, stochastic=stochastic)
     jstate = jopt.init(jparams)
-    tparams = [nn.Parameter(torch.from_numpy(init[k]).to(getattr(torch, dt[k]))) for k in "abc"]
+    # a copy: jnp.asarray may alias an aligned numpy buffer, which the port's
+    # in-place steps would then move under the JAX side
+    tparams = [nn.Parameter(torch.tensor(init[k]).to(getattr(torch, dt[k]))) for k in "abc"]
     cfg = TrainConfig(learning_rate=LR, optimizer=optimizer, lr_scales=scales)
     topt = make_optimizer(cfg, list(zip("abc", tparams)), stochastic=stochastic)
     write = jax.random.fold_in(jax.random.PRNGKey(0), 0x5EED)
