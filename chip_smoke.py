@@ -101,8 +101,10 @@ Phases, one JSON line each (k2 one per shape):
                   ``scaled_dot_product_attention`` with the same mask (the
                   yardstick, and the backend it took); each kernel's bound
                   from bytes and FLOPs, and its share (CUDA events, median
-                  of 25); the long backward's registers, local memory bytes
-                  and blocks an SM (``kernel_info``).
+                  of 25); above Dh 64 each wide kernel's registers, local
+                  memory bytes and blocks an SM (``kernel_info``: the
+                  forward on its route, the long backward's two; the long
+                  forward's beside its time in ``fwd_long_route``).
 5. train        — 50 DLRM Trainer steps at full width, then ``evaluate`` on
                   20 held-out batches; K1's launch count must equal the steps.
 6. card_cpu     — a small f32-table DLRM for 3 steps from one init on the
@@ -997,6 +999,19 @@ def k2_long_info(kernel: str, head_dim: int) -> dict:
     return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
 
 
+def k2_fwd_wide_info(route: str, L: int, heads: int, head_dim: int) -> dict:
+    """Registers, local memory bytes a thread (spills and stack) and blocks an
+    SM of the wide forward kernel (Dh > 64) of ``route`` at [., L, heads,
+    head_dim], as its launch configures it (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = _build.load("flash_attention").rtt_flash_attention_fwd_wide_info
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check(fn(int(route == "fused"), L, heads, head_dim, ctypes.addressof(out)) == 0,
+          f"K2 {route} forward info at Dh {head_dim}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
+
+
 def sdpa_backend(q, k, v, mask) -> str:
     """The backend torch's scaled_dot_product_attention picks for these inputs."""
     from torch.nn.attention import SDPBackend
@@ -1067,6 +1082,10 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
             "dQ", fns["bwd_dq"], device, *common, dq_.data_ptr(), *dims))
     kernel_info = ({kn: k2_long_info(kn, head_dim) for kn in ("bwd_dkv", "bwd_dq")}
                    if route == "long" else {})
+    if head_dim > 64:  # the wide forward on its route, and the long one beside the fused
+        kernel_info["fwd"] = k2_fwd_wide_info(fwd_route, L, heads, head_dim)
+        if long_route:
+            long_route["info"] = k2_fwd_wide_info("long", L, heads, head_dim)
     o_ref = fa.flash_mha_ref(*qkv, valid)
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_ref, qkv, cot, retain_graph=True))
     del o, o_ref, saved, sq, sk, sv, seg, out, lse, o_, lse_
@@ -1103,11 +1122,11 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
     for n in names:
         check(rel_err[n] <= tol[n], f"K2 {name}: {n} off by {rel_err[n]} of max|plain|")
     check(bitwise, f"K2 {name}: two launches differ")
-    if head_dim > 64:  # the wide long backward keeps everything in registers
-        for kn, info in kernel_info.items():
-            check(info["local_bytes"] == 0, f"K2 {name}: {kn} uses local memory: {info}")
+    if head_dim > 64:  # the wide kernels keep everything in registers
+        for kn, info in [*kernel_info.items(), ("fwd_long", long_route.get("info", {}))]:
+            check(info.get("local_bytes", 0) == 0, f"K2 {name}: {kn} uses local memory: {info}")
     return dict(abs_err=abs_err, fwd_route=fwd_route, route=route, fwd_ms=fwd_ms,
-                plain_fwd_ms=plain_fwd_ms, kernel_info=kernel_info,
+                plain_fwd_ms=plain_fwd_ms, kernel_info=kernel_info, fwd_long_route=long_route,
                 kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms, bounds=bounds,
                 library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms)
 
@@ -4005,6 +4024,9 @@ def main() -> int:
                     "library_ms": (k2[key]["library_fwd_ms"] if fwd
                                    else k2[key]["library_bwd_ms"]),
                     **k2[key]["kernel_info"].get(kernel, {}),
+                    # where the forward is fused: the long one on the same inputs
+                    **({"fwd_long_route": k2[key]["fwd_long_route"]}
+                       if fwd and k2[key]["fwd_long_route"] else {}),
                 } for key in K2_WIDE_CASES if k2[key][route_key] == route},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -79,27 +79,36 @@
 //    so the next tile's copy runs under this one's products.
 // 5. Head dims above 64 ("wide", flash_mma.cuh): Q no longer fits in
 //    registers beside O, and the long route's double-buffered K and V tiles
-//    would take 135 KB a block at Dh 128 (over 227 KB at 256). So a wide Dh
-//    runs in chunks of 64 columns. The long route gives each block one
-//    chunk of O (grid y): for each tile of 64 keys it copies the chunks of
-//    Q and K one at a time (its own chunk last, with V's), adds the
-//    scores up in registers, then runs the online softmax and O += P V on
-//    its chunk, one copy in flight a block (52 KB, so four blocks an SM
-//    overlap one another's copies). The fused route keeps its block and
-//    its shared memory: each warp walks the heads and, within each, O's
-//    chunks, the scores read over every column of Q and K from shared
-//    memory, and writes O straight to device memory. Each chunk computes
-//    the scores again, 1.5x the products per output column at Dh 128.
+//    would take 135 KB a block at Dh 128 (over 227 KB at 256). The first
+//    wide kernels gave each block or warp one 64-column chunk of O and
+//    computed S again for each chunk (1.5x the products at Dh 72 and 128,
+//    2.5x at 256 on the long route), copied the long block's Q again at
+//    every key tile and chunk, and waited for each copy at once. Now a warp
+//    keeps O on a group of up to 4 chunks (256 columns) in registers
+//    ("wide head dims" below): it computes S of a block of 64 keys once
+//    over the whole Dh, runs the online softmax on S's accumulators and
+//    takes P from them straight into O += P V, with no barrier between S
+//    and P V. The long block (64 queries, 4 warps, two blocks an SM)
+//    copies its Q once and streams K's and V's 64 x 64 chunks through a
+//    ring of swizzled slots whose next copies run under each step's
+//    products, one barrier a chunk; the fused block keeps its shared
+//    memory and stages O over its q rows. Each tile's 8 chains of three
+//    products run without a branch between them where the whole block of
+//    keys is live: with one they ran one at a time, and the long kernel at
+//    L 1001, Dh 128 took 9.6 ms, not 5.6 (k2_fwd_variants.py,
+//    branch_per_tile).
 //    Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase
-//    k2): the L1001 probe at Dh 128, H 4: 10.9 ms alone, 10% of its 1.09 ms
-//    (operations) bound; BST's rows with one head of Dh 128: 0.62 ms fused,
-//    10% of its 0.064 ms (bytes) bound, where the long kernel on the same
-//    inputs takes 0.43 (the fused block's 160 KB holds one block an SM);
-//    Dh 72: 0.25 ms fused, 14%; Dh 256, B 256, H 2: 0.70 ms long, 9%.
-//    nvcc -Xptxas -v (chip_smoke.py --ptxas, the same card): the wide long
-//    kernel 132 registers, the wide fused kernel 121, no spills; the
-//    narrow long kernel at DP 64 168 registers with 60 bytes of spill
-//    stores (its limit of three blocks an SM).
+//    k2, PERF.md): the L1001 probe at Dh 128, H 4: 5.6 ms alone (the
+//    chunked kernel 10.9), 20% of its 1.09 ms (operations) bound, SDPA 7.9;
+//    Dh 256, B 256, H 2: 0.30 ms long (0.72), 21% of its 0.063 ms (bytes)
+//    bound; BST's rows with one head of Dh 128: 0.30 ms fused (0.61), 21%,
+//    where the long kernel on the same inputs takes 0.25 (the fused block's
+//    160 KB holds one block an SM); Dh 72: 0.17 ms fused (0.23).
+//    cudaFuncGetAttributes and nvcc -Xptxas -v (chip_smoke.py --ptxas, the
+//    same card): the wide long kernel 197 (NC 2) and 255 (NC 4) registers,
+//    the wide fused kernel 169 and 255, no spills, no stack; the narrow
+//    long kernel at DP 64 168 registers with 60 bytes of spill stores (its
+//    limit of three blocks an SM).
 // Each output element is written once, by one thread, with no atomics: every
 // launch is bitwise deterministic.
 //
@@ -320,27 +329,180 @@ __device__ __forceinline__ void attend(Query<DP>& w, const float* kp, const floa
   softmax_pv<DP>(w, s, vp, stride, mk);
 }
 
-// Wide head dims: acc[jt] += c2 Q K^T over ng groups of 8 columns, Q the
-// warp's 16 rows from r0 (A fragments read from shared memory, split once
-// for the 8 tiles), K the 8 rows at 8 jt of k, for the live tiles jt.
-__device__ __forceinline__ void wide_scores(float (&acc)[kBlockTiles][4], const View& q,
-                                            const View& k, int r0, int ng, float c2,
-                                            uint32_t live, Lane ln) {
-  for (int kk = 0; kk < ng; ++kk) {
-    const FragA a = load_a(q, r0, 8 * kk, ln, c2);
-#pragma unroll
-    for (int jt = 0; jt < kBlockTiles; ++jt)
-      if (live >> jt & 1) mma3(acc[jt], a, load_bt(k, 8 * jt, 8 * kk, ln));
-  }
-}
+// ------------------------------------------------------------ wide head dims
+// Dh > 64 (flash_mma.cuh, "Head dims"). A warp owns 16 query rows and O on a
+// group of NC chunks of kC columns (wide_group_chunks). It computes S of a
+// block of 64 keys once over the whole Dh, runs the online softmax on S's
+// accumulators and takes P from them straight into O += P V (acc_as_a),
+// with no block barrier between S and P V.
 
-// The scores of a block from the sums of wide_scores: -inf where mk hides a pair.
-__device__ __forceinline__ void masked_scores(float (&s)[kBlockTiles][4],
-                                              const float (&acc)[kBlockTiles][4], Mask mk) {
+// The online softmax of a warp's 16 query rows on a group of NC chunks: as
+// Online, with O [NC][kC / 8][4] floats a lane.
+template <int NC>
+struct WideRows : RowSeg {
+  float m[2], l[2];
+  float o[NC][kC / 8][4];
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int nn = 0; nn < kC / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c][nn][e] = 0.f;
+  }
+
+  // 1 / l of the lane's rows g and g + 8 (the quad's shares added up) and,
+  // unless lse_dst is null, the natural-log lse into lse_dst[row] for rows
+  // r0 + g, r0 + g + 8 below n.
+  __device__ __forceinline__ void finish(float (&inv)[2], float* lse_dst, int r0, int n,
+                                         Lane ln) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];  // rows past n have nothing to store; their l may be 0
+      const int row = r0 + ln.g + 8 * r;
+      if (lse_dst != nullptr && ln.t == 0 && row < n) lse_dst[row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+};
+
+// The softmax of one block of keys from its raw scores s (Q K^T): the
+// base-2 scores c2 s, -inf where mk hides a pair; the block's row max; O and
+// the row sum rescaled once if it rose; then P = 2^(S - m) in s on the live
+// tiles, added to the row sums.
+template <int NC>
+__device__ __forceinline__ void wide_softmax(WideRows<NC>& w, float (&s)[kBlockTiles][4],
+                                             Mask mk, float c2) {
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int jt = 0; jt < kBlockTiles; ++jt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[jt][e] = mk.on >> (4 * jt + e) & 1 ? acc[jt][e] : -INFINITY;
+    for (int e = 0; e < 4; ++e) {
+      s[jt][e] = mk.on >> (4 * jt + e) & 1 ? s[jt][e] * c2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[jt][e]);
+    }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    if (mx[r] > w.m[r]) {
+      const float corr = ex2(w.m[r] - mx[r]);
+      w.l[r] *= corr;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int nn = 0; nn < kC / 8; ++nn) {
+          w.o[c][nn][2 * r] *= corr;
+          w.o[c][nn][2 * r + 1] *= corr;
+        }
+      w.m[r] = mx[r];
+    }
+    base[r] = w.m[r] == -INFINITY ? 0.f : w.m[r];
+  }
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
+    if (!(mk.live >> jt & 1)) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[jt][e] = ex2(s[jt][e] - base[e >> 1]);
+      w.l[e >> 1] += s[jt][e];
+    }
+  }
+}
+
+// The inner loops below run S over every tile of a live block of keys (a
+// tile the mask hides adds a product whose P is 0) and P V over every column
+// group of a full chunk without a branch between them: the 8 independent
+// chains of three products then interleave. A branch per tile or group left
+// each chain to run alone (nvcc put one between every three products).
+
+// The fused route's scores: acc[jt] += Q K^T over ng groups of 8 columns, Q
+// the warp's 16 rows from r0 (A fragments read from shared memory, split
+// once for the 8 tiles), K the 8 rows at 8 jt of k, every tile (rows past
+// the keys read k's last one).
+__device__ __forceinline__ void wide_scores(float (&acc)[kBlockTiles][4], const View& q,
+                                            const View& k, int r0, int ng, Lane ln) {
+  int kr[kBlockTiles];
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) kr[jt] = min(8 * jt + ln.g, k.rows - 1) * k.stride + ln.t;
+  for (int kk = 0; kk < ng; ++kk) {
+    const FragA a = load_a(q, r0, 8 * kk, ln);
+#pragma unroll
+    for (int jt = 0; jt < kBlockTiles; ++jt)
+      mma3(acc[jt], a, split_b(k.p[kr[jt] + 8 * kk], k.p[kr[jt] + 8 * kk + 4]));
+  }
+}
+
+// The fused route's O += P V over the group's first nw groups of 8 columns,
+// the live tiles only: vp points at V(k0 + 2t, c0 + g) of the lane's head,
+// rows `stride` floats apart; every row below the block's last live tile
+// may be read.
+template <int NC>
+__device__ __forceinline__ void wide_pv_rows(WideRows<NC>& w, const float (&p)[kBlockTiles][4],
+                                             uint32_t live, const float* vp, int stride,
+                                             int nw) {
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
+    if (!(live >> jt & 1)) continue;
+    const FragA a = acc_as_a(p[jt]);
+    const float* v0 = vp + 8 * jt * stride;
+    const float* v1 = v0 + stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (8 * c + 8 <= nw) {
+#pragma unroll
+        for (int nn = 0; nn < kC / 8; ++nn)
+          mma3(w.o[c][nn], a, split_b(v0[c * kC + 8 * nn], v1[c * kC + 8 * nn]));
+      } else if (8 * c < nw) {
+#pragma unroll
+        for (int nn = 0; nn < kC / 8; ++nn)
+          if (8 * c + nn < nw)
+            mma3(w.o[c][nn], a, split_b(v0[c * kC + 8 * nn], v1[c * kC + 8 * nn]));
+      }
+    }
+  }
+}
+
+// The long route's O_c += P X over the block's 64 keys, the live tiles only:
+// X the first nw groups of 8 columns of a swizzled chunk tile of V, read in
+// load_b_acc's order. Rows 8 jt + 2 t and 8 jt + 2 t + 1 swizzle by 8 t and
+// 8 t + 4, so group nn sits at 32 (nn / 4) + 8 ((nn % 4) ^ t) + g (g ^ 4):
+// four lane pointers a row, and immediate offsets from them.
+__device__ __forceinline__ void wide_pv_swz(float (&o)[kC / 8][4],
+                                            const float (&p)[kBlockTiles][4], uint32_t live,
+                                            const float* x, int nw, Lane ln) {
+  const float* x0[4];
+  const float* x1[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    x0[b] = x + 2 * ln.t * kC + ln.g + 8 * (b ^ ln.t);
+    x1[b] = x + (2 * ln.t + 1) * kC + (ln.g ^ 4) + 8 * (b ^ ln.t);
+  }
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) {
+    if (!(live >> jt & 1)) continue;
+    const FragA a = acc_as_a(p[jt]);
+    const int row = 8 * jt * kC;
+    if (nw == kC / 8) {
+#pragma unroll
+      for (int nn = 0; nn < kC / 8; ++nn)
+        mma3(o[nn], a, split_b(x0[nn & 3][row + 32 * (nn >> 2)], x1[nn & 3][row + 32 * (nn >> 2)]));
+    } else {
+#pragma unroll
+      for (int nn = 0; nn < kC / 8; ++nn)
+        if (nn < nw)
+          mma3(o[nn], a,
+               split_b(x0[nn & 3][row + 32 * (nn >> 2)], x1[nn & 3][row + 32 * (nn >> 2)]));
+    }
+  }
 }
 
 // n floats from shared memory to device memory, 16 bytes a store where vec.
@@ -357,12 +519,14 @@ __device__ __forceinline__ void store_span(float* __restrict__ dst, const float*
 // ------------------------------------------------------------ fused route
 // One block per batch row b, one warp per 16 queries (L rounded up to 16).
 // The warp takes the segment mask of its queries once, then walks the heads,
-// and writes each head's O over its own q rows of that head. kWide (Dh > 64,
-// DP = kC): the warp walks the heads and, within each, O's chunks of kC
-// columns; the scores take every column of Q and K from shared memory, and
-// O goes straight to device memory, since Q stays needed until the head's
-// last chunk.
-template <int DP, bool kTail4, bool kWide = false>
+// and writes each head's O over its own q rows of that head. NC > 0 (Dh >
+// 64, DP = kC): per head and group of NC chunks (wide_groups), the
+// warp computes S of each block of keys once over every column of Q and K,
+// read from shared memory, and O += P V on the group's columns in
+// registers. With one group, O goes over the warp's q rows of the head as
+// the narrow kernel's does; with more, later groups still read q, so O goes
+// straight to device memory.
+template <int DP, bool kTail4, int NC = 0>
 __global__ void __launch_bounds__(kFusedMaxL / 16 * 32)
 flash_fwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const int* __restrict__ seg,
@@ -402,34 +566,48 @@ flash_fwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Lane ln = lane();
   const int r0 = 16 * (tid >> 5);
   const float c2 = scale * kLog2e;
-  if constexpr (kWide) {
-    Online<DP> w;
-    w.init(seg_s, r0, L, ln);
+  if constexpr (NC > 0) {
+    WideRows<NC> w;
+    w.set(seg_s, r0, L, ln);
     Mask mk[kBlocks];
 #pragma unroll
     for (int i = 0; i < kBlocks; ++i)
       mk[i] = i * kBlockKeys < L ? block_mask(w, seg_s, L, i * kBlockKeys, ln) : Mask{0u, 0u};
-    const int ng = (Dh + 7) / 8;
+    const int ng = (Dh + 7) / 8, groups = wide_groups(Dh);
     for (int h = 0; h < H; ++h) {
       const View qv{qs + h * Dh, HD, L, Dh};
-      for (int c0 = 0; c0 < Dh; c0 += kC) {
-        w.init(seg_s, r0, L, ln);
+      for (int gi = 0; gi < groups; ++gi) {
+        const int c0 = gi * NC * kC, nw = (min(NC * kC, Dh - c0) + 7) / 8;
+        w.reset();
 #pragma unroll
         for (int i = 0; i < kBlocks; ++i) {
           if (!mk[i].live) continue;
           const int k0 = i * kBlockKeys;
-          float acc[kBlockTiles][4] = {}, s[kBlockTiles][4];
-          wide_scores(acc, qv, View{ks + h * Dh + k0 * HD, HD, L - k0, Dh}, r0, ng, c2,
-                      mk[i].live, ln);
-          masked_scores(s, acc, mk[i]);
-          softmax_pv<DP>(w, s, vs + h * Dh + c0 + (k0 + 2 * ln.t) * HD + ln.g, HD, mk[i],
-                         (min(kC, Dh - c0) + 7) / 8);
+          float s[kBlockTiles][4] = {};
+          wide_scores(s, qv, View{ks + h * Dh + k0 * HD, HD, L - k0, Dh}, r0, ng, ln);
+          wide_softmax(w, s, mk[i], c2);
+          wide_pv_rows(w, s, mk[i].live, vs + h * Dh + c0 + (k0 + 2 * ln.t) * HD + ln.g, HD, nw);
         }
-        w.store(o + base + h * Dh + c0, HD, c0 == 0 ? lse_s + h * L : nullptr, r0, L,
-                min(kC, Dh - c0), ln);
+        float inv[2];
+        w.finish(inv, gi == 0 ? lse_s + h * L : nullptr, r0, L, ln);
+        // one group: O over the warp's own q rows of head h, once every
+        // lane has read them; else straight to device memory
+        if (groups == 1) __syncwarp();
+        float* dst = groups == 1 ? qs + h * Dh : o + base + h * Dh + c0;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int nn = 0; nn < kC / 8; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + ln.g + 8 * (e >> 1);
+              const int col = c * kC + 8 * nn + 2 * ln.t + (e & 1);
+              if (row < L && c0 + col < Dh) dst[row * HD + col] = w.o[c][nn][e] * inv[e >> 1];
+            }
       }
     }
     __syncthreads();
+    if (groups == 1) store_span(o + base, qs, n, vec);
     store_span(lse + (int64_t)b * H * L, lse_s, H * L, vec_lse);
     return;
   }
@@ -542,78 +720,173 @@ flash_fwd_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ wide long route
-// Shared memory of a wide long-route block: chunk tiles of Q, K and V
-// ([kTile][kCs] each) and seg [kTile].
-__host__ __device__ constexpr int64_t wide_long_bytes() { return 4 * (3LL * kCTile + kTile); }
+// A block owns 64 queries of one head and O on its group of NC chunks (grid
+// y: wide_groups). Its shared memory is slots of one swizzled 64 x 64
+// chunk tile each (kSwzTile floats) and seg [2][kTile]: the block's Q, its nd
+// chunks copied once, then a ring of R = slots - nd K and V chunks; where Q
+// does not fit (nd > NC, Dh > 256), its chunks stream through a ring of
+// every slot, each beside K's.
+//
+// For each tile of 64 keys the block takes nd steps, S += Q_d K_d^T over
+// chunk d, then the softmax in registers, then NC steps, O_c += P V_c. The
+// ring's schedule: the tile's copies, in the order the steps use them, are
+// for each chunk d Q's (where Q streams) and K's, then V's chunks of the
+// group; copy i goes to ring slot i % R and, with a tile's first copy, the
+// tile's seg to seg buffer t % 2. Each copy is one cp.async group. A step
+// waits for its own last copy, then at one barrier, which also tells that
+// every warp is done with the step before and its slots, issues the copies
+// up to the one that takes that step's last slot: R - 1 copies (R - 2 where a
+// step reads Q's and K's) stay in flight under each step's products.
+// Mirrored and simulated over Dh 65-599 by
+// tests/test_torch_flash_attention.py::test_wide_fwd_ring_schedule.
+//
+// Slots: 6 where NC = 2 (96 KB) and 7 where NC = 4 (112 KB), so that two
+// blocks of 4 warps share an SM (each with the 1 KB the card reserves a
+// block); two blocks give a thread up to 255 registers, which hold O on 4
+// chunks (128 floats a lane) and S without spilling. Three blocks at NC = 2
+// (a ring of 2, at most 168 registers) ran 7% faster at L 1001 but spilled
+// 20 bytes a thread (k2_fwd_variants.py, three_blocks); a block of 8 warps
+// on 128 queries, which halves the copies, was slower in a trial build.
+__host__ __device__ constexpr int wide_fwd_slots(int NC) { return NC == 2 ? 6 : 7; }
 
-// O's chunk blockIdx.y (kC columns) and, from chunk 0's blocks, lse of the
-// block's 64 queries of one head. For each tile of 64 keys the block takes
-// the chunks of Q and K one by one, adding up the scores of its warps in
-// registers, chunk c last and with it V's chunk c; then the online softmax
-// and O += P V on that chunk. One copy at a time: the three blocks an SM
-// holds overlap one another's copies.
-__global__ void __launch_bounds__(kLongThreads, 3)
+__host__ __device__ constexpr int64_t wide_fwd_smem_bytes(int NC) {
+  return 4LL * (wide_fwd_slots(NC) * kSwzTile + 2 * kTile);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kLongThreads, 2)
 flash_fwd_wide_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const int* __restrict__ seg,
                            float* __restrict__ o, float* __restrict__ lse, int L, int H,
                            int Dh, float scale, bool vec) {
   extern __shared__ float4 smem[];
-  float* qt = reinterpret_cast<float*>(smem);
-  float* kt = qt + kCTile;
-  float* vt = kt + kCTile;
-  int* seg_s = reinterpret_cast<int*>(vt + kCTile);
+  float* slots = reinterpret_cast<float*>(smem);
+  int* seg_s = reinterpret_cast<int*>(slots + wide_fwd_slots(NC) * kSwzTile);  // [2][kTile]
   const Where w = where(L, H, Dh);
   const int HD = H * Dh, tid = threadIdx.x, r0 = 16 * (tid >> 5);
   const int qn = min(kTile, L - w.row0), nt = (L + kTile - 1) / kTile;
-  const int nd = chunks(Dh), c = blockIdx.y, c0 = c * kC, wc = min(kC, Dh - c0);
+  const int nd = chunks(Dh), g0 = blockIdx.y * NC, ngc = min(NC, nd - g0);
+  const bool q_stream = nd > NC;
+  const int R = wide_fwd_slots(NC) - (q_stream ? 0 : nd);
+  float* ring = slots + (q_stream ? 0 : nd) * kSwzTile;
+  const int take = q_stream ? 2 : 1;  // the copies of an S step: Q's (where it streams), K's
+  const int kd = take * nd, per_tile = kd + ngc, total = nt * per_tile;
   const int64_t seg_b = (int64_t)w.b * L;
   const Lane ln = lane();
-  const float c2 = scale * kLog2e;
 
-  zero_smem(smem, (int)(wide_long_bytes() / 16), tid, kLongThreads);
-  Online<kC> st;
-  st.init(seg + seg_b + w.row0, r0, qn, ln);
-  for (int t = 0; t < nt; ++t) {
-    const int k0 = t * kTile, n = min(kTile, L - k0);
-    float acc[kBlockTiles][4] = {};
-    Mask mk{0u, 0u};
-    for (int i = 0; i < nd; ++i) {
-      const int d0 = chunk_at(i, c, nd) * kC, wd = min(kC, Dh - d0);
-      __syncthreads();  // every warp is done with the tiles
-      load_chunk_async(qt, q, w.base, d0, w.row0, qn, HD, wd, vec, tid);
-      load_chunk_async(kt, k, w.base, d0, k0, n, HD, wd, vec, tid);
-      if (i == 0)
-        for (int e = tid; e < n; e += kLongThreads) cp_async4(seg_s + e, seg + seg_b + k0 + e);
-      if (i == nd - 1) load_chunk_async(vt, v, w.base, c0, k0, n, HD, wc, vec, tid);
+  if (!q_stream) {
+    for (int d = 0; d < nd; ++d)
+      load_swz_async(slots + d * kSwzTile, q, w.base + d * kC, w.row0, qn, HD,
+                     min(kC, Dh - d * kC), vec, tid, kLongThreads);
+    cp_async_commit();
+  }
+  int issued = 0, lt = 0, lk = 0;  // copies issued; the next one's tile and place in it
+  auto issue = [&](int upto) {
+    for (; issued <= upto && issued < total; ++issued) {
+      const int k0 = lt * kTile, n = min(kTile, L - k0);
+      const float* x = k;
+      int d0, row0 = k0, rows = n;
+      if (lk >= kd) {
+        d0 = (g0 + lk - kd) * kC;
+        x = v;
+      } else if (q_stream) {  // Q's chunk d, then K's
+        d0 = (lk >> 1) * kC;
+        if (!(lk & 1)) {
+          x = q;
+          row0 = w.row0;
+          rows = qn;
+        }
+      } else {
+        d0 = lk * kC;
+      }
+      load_swz_async(ring + (issued % R) * kSwzTile, x, w.base + d0, row0, rows, HD,
+                     min(kC, Dh - d0), vec, tid, kLongThreads);
+      if (lk == 0)
+        for (int e = tid; e < n; e += kLongThreads)
+          cp_async4(seg_s + (lt & 1) * kTile + e, seg + seg_b + k0 + e);
       cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (i == 0) mk = block_mask(st, seg_s, n, 0, ln);
-      if (mk.live)
-        wide_scores(acc, View{qt, kCs, qn, wd}, View{kt, kCs, n, wd}, r0, (wd + 7) / 8, c2,
-                    mk.live, ln);
+      if (++lk == per_tile) {
+        lk = 0;
+        ++lt;
+      }
     }
-    if (mk.live) {
-      float s[kBlockTiles][4];
-      masked_scores(s, acc, mk);
-      softmax_pv<kC>(st, s, vt + 2 * ln.t * kCs + ln.g, kCs, mk, (wc + 7) / 8);
+  };
+  int last = -1;  // the last copy the steps so far read
+  // a step that reads `take` copies: returns the first one's index
+  auto step = [&](int take) {
+    const int first = last + 1;
+    cp_async_wait_n(issued - 1 - (last + take));
+    __syncthreads();
+    issue(last + R);
+    last += take;
+    return first;
+  };
+  issue(R - 1);
+
+  const float c2 = scale * kLog2e;
+  WideRows<NC> st;
+  st.set(seg + seg_b + w.row0, r0, qn, ln);
+  st.reset();
+  bool every[kBlockTiles];  // S of every tile of a live block (see wide_scores)
+#pragma unroll
+  for (int jt = 0; jt < kBlockTiles; ++jt) every[jt] = true;
+  for (int t = 0; t < nt; ++t) {
+    const int n = min(kTile, L - t * kTile);
+    float s[kBlockTiles][4] = {};  // S, then P
+    Mask mk{0u, 0u};
+    for (int d = 0; d < nd; ++d) {
+      const int u = step(take);
+      if (d == 0) mk = block_mask(st, seg_s + (t & 1) * kTile, n, 0, ln);
+      if (mk.live) {
+        const float* qt = q_stream ? ring + (u % R) * kSwzTile : slots + d * kSwzTile;
+        const float* kt = ring + ((u + take - 1) % R) * kSwzTile;
+        wide_score_products<kBlockTiles>(qt, kt, r0, 0, (min(kC, Dh - d * kC) + 7) / 8, every,
+                                         ln, s);
+      }
+    }
+    wide_softmax(st, s, mk, c2);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c >= ngc) break;
+      const int u = step(1);
+      if (mk.live)
+        wide_pv_swz(st.o[c], s, mk.live, ring + (u % R) * kSwzTile,
+                    (min(kC, Dh - (g0 + c) * kC) + 7) / 8, ln);
     }
   }
+  // O / l into slots 0 .. ngc - 1 once every warp is done with them (no
+  // copy is pending), then to device memory as rows of 16-byte pieces
+  float inv[2];
+  st.finish(inv, blockIdx.y == 0 ? lse + w.rows + w.row0 : nullptr, r0, qn, ln);
   __syncthreads();
-  st.store(qt, kCs, c == 0 ? lse + w.rows + w.row0 : nullptr, r0, qn, wc, ln);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int nn = 0; nn < kC / 8; ++nn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (c >= ngc) break;
+        const int row = r0 + ln.g + 8 * r;
+        *reinterpret_cast<float2*>(slots + c * kSwzTile + swz(row, 8 * nn + 2 * ln.t)) =
+            make_float2(st.o[c][nn][2 * r] * inv[r], st.o[c][nn][2 * r + 1] * inv[r]);
+      }
   __syncthreads();
-  float* dst = o + w.base + c0;
-  if (vec) {
-    const int cpr = wc >> 2;
-    for (int e = tid; e < qn * cpr; e += kLongThreads) {
-      const int r = e / cpr, col = (e - r * cpr) << 2;
-      *reinterpret_cast<float4*>(dst + (int64_t)(w.row0 + r) * HD + col) =
-          *reinterpret_cast<const float4*>(qt + r * kCs + col);
-    }
-  } else {
-    for (int e = tid; e < qn * wc; e += kLongThreads) {
-      const int r = e / wc, col = e - r * wc;
-      dst[(int64_t)(w.row0 + r) * HD + col] = qt[r * kCs + col];
+  for (int c = 0; c < ngc; ++c) {
+    const int c0 = (g0 + c) * kC, wc = min(kC, Dh - c0);
+    const float* src = slots + c * kSwzTile;
+    float* dst = o + w.base + c0 + (int64_t)w.row0 * HD;
+    if (vec) {
+      const int cpr = wc >> 2;
+      for (int e = tid; e < qn * cpr; e += kLongThreads) {
+        const int r = e / cpr, col = (e - r * cpr) << 2;
+        *reinterpret_cast<float4*>(dst + (int64_t)r * HD + col) =
+            *reinterpret_cast<const float4*>(src + swz(r, col));
+      }
+    } else {
+      for (int e = tid; e < qn * wc; e += kLongThreads) {
+        const int r = e / wc, col = e - r * wc;
+        dst[(int64_t)r * HD + col] = src[swz(r, col)];
+      }
     }
   }
 }
@@ -647,24 +920,47 @@ struct Launch {
                   vec4 && a.Dh % 4 == 0);
   }
 
-  // Dh > 64, in chunks of kC = DP columns
+  // Dh > 64: groups of 2 or 4 chunks of kC = DP columns
   static void run_wide(const Which& which, const Args& a, const cudaStream_t& s) {
+    if (wide_group_chunks(a.Dh) == 2)
+      run_group<2>(which, a, s);
+    else
+      run_group<4>(which, a, s);
+  }
+
+  template <int NC>
+  static void run_group(Which which, const Args& a, cudaStream_t s) {
     const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o);
     if (which == kFused) {
       const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
       const bool vec_lse = aligned16(a.lse) && (a.H * a.L) % 4 == 0;
-      launch_kernel(flash_fwd_fused_kernel<DP, false, true>, (unsigned)a.B,
-                    (a.L + 15) / 16 * 32, fwd_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v,
-                    a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale, vec, vec_lse);
+      launch_kernel(flash_fwd_fused_kernel<DP, false, NC>, (unsigned)a.B, (a.L + 15) / 16 * 32,
+                    fwd_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v, a.seg, a.o, a.lse, a.L,
+                    a.H, a.Dh, a.scale, vec, vec_lse);
       return;
     }
     const dim3 grid((unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H),
-                    (unsigned)chunks(a.Dh));
-    launch_kernel(flash_fwd_wide_long_kernel, grid, kLongThreads, wide_long_bytes(), s, a.q,
-                  a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale,
+                    (unsigned)wide_groups(a.Dh));
+    launch_kernel(flash_fwd_wide_long_kernel<NC>, grid, kLongThreads, wide_fwd_smem_bytes(NC), s,
+                  a.q, a.k, a.v, a.seg, a.o, a.lse, a.L, a.H, a.Dh, a.scale,
                   vec4 && a.Dh % 4 == 0);
   }
 };
+
+// Registers, local memory bytes a thread and blocks an SM (out[0..2]) of the
+// wide forward kernel of (L, H, Dh)'s group, fused or long, as its launch
+// configures it.
+template <int NC>
+int wide_info(bool fused, int L, int H, int Dh, int* out) {
+  if (!fused) {
+    kernel_info(flash_fwd_wide_long_kernel<NC>, kLongThreads, wide_fwd_smem_bytes(NC), out);
+    return 0;
+  }
+  if (L > kFusedMaxL || fwd_smem_bytes(L, H, Dh) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  kernel_info(flash_fwd_fused_kernel<kC, false, NC>, (L + 15) / 16 * 32, fwd_smem_bytes(L, H, Dh),
+              out);
+  return 0;
+}
 
 int dispatch(Which which, const void* q, const void* k, const void* v, const void* seg,
              void* o, void* lse, int B, int L, int H, int Dh, float scale, void* stream) {
@@ -702,4 +998,21 @@ extern "C" int rtt_flash_attention_fwd_long(const void* q, const void* k, const 
                                             const void* seg, void* o, void* lse, int B, int L,
                                             int H, int Dh, float scale, void* stream) {
   return dispatch(kLong, q, k, v, seg, o, lse, B, L, H, Dh, scale, stream);
+}
+
+// The wide forward's column groups at Dh (the long route's blocks in grid y;
+// 0 for Dh <= 64), as ops/flash_attention.py::wide_fwd_groups counts them.
+extern "C" int rtt_flash_attention_fwd_wide_groups(int Dh) {
+  return Dh > kNarrowMaxDh ? wide_groups(Dh) : 0;
+}
+
+// Registers, local memory bytes a thread and blocks an SM (out[0..2]) of the
+// wide forward kernel (Dh > 64) of the fused (fused != 0) or the long route,
+// as its launch at [., L, H, Dh] configures it (the long kernel's does not
+// depend on L and H; the fused block's threads and shared memory do).
+extern "C" int rtt_flash_attention_fwd_wide_info(int fused, int L, int H, int Dh, int* out) {
+  if (Dh <= kNarrowMaxDh || L < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const int err = wide_group_chunks(Dh) == 2 ? wide_info<2>(fused != 0, L, H, Dh, out)
+                                                 : wide_info<4>(fused != 0, L, H, Dh, out);
+  return err != 0 ? err : (int)cudaGetLastError();
 }

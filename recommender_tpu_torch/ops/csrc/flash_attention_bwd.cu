@@ -615,7 +615,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Dh > 64: a dK/dV kernel and a dQ kernel of one design. A block owns 64
 // rows of one head (keys for dK/dV, queries for dQ) and a group of NC chunks
 // of kC columns of their outputs: NC = 2 where Dh <= 128, else 4 (256
-// columns); grid y counts the groups (wide_bwd_groups). For each streamed
+// columns); grid y counts the groups (wide_groups). For each streamed
 // tile of 64 rows of the other side it runs
 // * phase A: S^T and dP^T (dK/dV) or S and dP (dQ) of the 64 x 64 pairs over
 //   the whole head dim, chunk by chunk from a ring in shared memory; half the
@@ -635,15 +635,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 __host__ __device__ constexpr int wide_warps(int NC) { return NC == 2 ? 16 : 8; }
 constexpr int kOwnSlots = 2;   // own rows: K and V (dK/dV) or Q and dO (dQ), a chunk each
 constexpr int kTileSlots = 4;  // streamed rows: Q and dO, or K and V, a chunk each
-constexpr int kSwzTile = kTile * kC;  // floats of a swizzled chunk tile
 
-__host__ __device__ constexpr int wide_bwd_group_chunks(int Dh) { return chunks(Dh) <= 2 ? 2 : 4; }
-
-// Blocks in grid y: groups of wide_bwd_group_chunks chunks. Mirrored by
-// ops/flash_attention.py::wide_bwd_groups.
-__host__ __device__ constexpr int wide_bwd_groups(int Dh) {
-  return (chunks(Dh) + wide_bwd_group_chunks(Dh) - 1) / wide_bwd_group_chunks(Dh);
-}
 
 // Shared memory of a wide block at any Dh: the own and streamed rings (two
 // tensors a slot), phase A's pieces (P and D), the row vectors of two
@@ -651,47 +643,6 @@ __host__ __device__ constexpr int wide_bwd_groups(int Dh) {
 // liveness. Mirrored by ops/flash_attention.py::wide_bwd_smem_bytes.
 __host__ __device__ constexpr int64_t wide_bwd_smem_bytes(bool dkv) {
   return 4LL * ((kOwnSlots + kTileSlots + 1) * 2 * kSwzTile + 2 * (dkv ? 3 : 1) * kTile + 4 * 8);
-}
-
-// A chunk tile without pad: element (r, c) at r * kC + (c ^ 4 (r & 7)). The
-// XOR puts the A reads, the row reads (B = X^T) and the accumulator-order
-// reads (load_b_acc's) of a warp on 32 banks, and keeps each 16-byte piece
-// of a row whole for cp.async.
-__device__ __forceinline__ int swz(int r, int c) { return r * kC + (c ^ ((r & 7) << 2)); }
-
-// cp.async of 16 (4) bytes that writes zeros where !in (src-size 0; src
-// stays a valid address).
-__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src, bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4_or_zero(void* dst, const void* src, bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// A whole swizzled chunk tile by cp.async: columns [0, w) of rows [row0, row0
-// + n) of one head (base: the offset of (b, 0, h, d0)), zeros in every other
-// row and column. So the products read it without bounds: zeros add nothing.
-// 16 bytes a copy where vec (16 threads a row), else 4 (64 threads a row).
-__device__ __forceinline__ void load_swz_async(float* dst, const float* __restrict__ x,
-                                               int64_t base, int row0, int n, int HD, int w,
-                                               bool vec, int tid, int nthreads) {
-  const int per_row = vec ? kC / 4 : kC, c = (tid % per_row) * (vec ? 4 : 1);
-  const int r0 = tid / per_row, step = nthreads / per_row;
-  const float* src = x + base + (int64_t)(row0 + r0) * HD + c;
-  for (int r = r0; r < kTile; r += step, src += (int64_t)step * HD) {
-    const bool in = r < n && c < w;
-    if (vec)
-      cp_async16_or_zero(dst + swz(r, c), in ? src : x, in);
-    else
-      cp_async4_or_zero(dst + swz(r, c), in ? src : x, in);
-  }
 }
 
 // The ring's schedule. A block's phase-A steps run in one sequence u = t nd +
@@ -732,25 +683,6 @@ struct Ring {
     return ps < nng ? pt * nd + ps < v : hb > pt * nh + (ps - nng) / 2;
   }
 };
-
-// Phase A, one chunk of ks steps of 8 columns: acc[i] += X Y_i^T, X the
-// warp's 16 own rows from r0 (A fragments), Y_i the 8 streamed rows at j0 +
-// 8 i (B fragments), live pieces only. Rows r0 + g, r0 + g + 8 and j0 + 8 i
-// + g all swizzle by 4 g, so one column offset a step serves every read.
-template <int NT>
-__device__ __forceinline__ void wide_score_products(const float* x, const float* y, int r0,
-                                                    int j0, int ks, const bool (&live)[NT],
-                                                    Lane l, float (&acc)[NT][4]) {
-  const int sw = 4 * l.g, ra = (r0 + l.g) * kC, rb = (j0 + l.g) * kC;
-#pragma unroll 2
-  for (int kk = 0; kk < ks; ++kk) {
-    const int c = (8 * kk + l.t) ^ sw, c4 = c ^ 4;
-    const FragA a = split_a(x[ra + c], x[ra + 8 * kC + c], x[ra + c4], x[ra + 8 * kC + c4]);
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-      if (live[i]) mma3(acc[i], a, split_b(y[rb + 8 * i * kC + c], y[rb + 8 * i * kC + c4]));
-  }
-}
 
 // Phase B, one chunk of one output: acc += A X over the tile's 64 rows, A the
 // warp's pieces jt of P (kDs: P times D, i.e. dS) from phase A, live ones
@@ -1136,8 +1068,8 @@ struct Launch {
       return;
     }
     const dim3 grid((unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H),
-                    (unsigned)wide_bwd_groups(a.Dh));
-    if (wide_bwd_group_chunks(a.Dh) == 2)
+                    (unsigned)wide_groups(a.Dh));
+    if (wide_group_chunks(a.Dh) == 2)
       run_wide_long<2>(which, a, s, grid, vec4 && a.Dh % 4 == 0);
     else
       run_wide_long<4>(which, a, s, grid, vec4 && a.Dh % 4 == 0);
@@ -1158,20 +1090,6 @@ struct Launch {
   }
 };
 
-// Registers, local memory (spills and stack) bytes a thread and blocks an SM
-// of a long-route kernel, as the launch configures it.
-template <typename Kernel>
-void kernel_info(Kernel kernel, int threads, int64_t smem, int* out) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  cudaFuncAttributes attr{};
-  cudaFuncGetAttributes(&attr, kernel);
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, threads, (size_t)smem);
-}
-
 template <int DP, bool kTail4>
 struct Info {
   static void run(Which which, int, int* out) {
@@ -1181,7 +1099,7 @@ struct Info {
       kernel_info(flash_bwd_dq_kernel<DP, kTail4>, kLongThreads, long_bytes<DP>(), out);
   }
   static void run_wide(Which which, int Dh, int* out) {
-    if (wide_bwd_group_chunks(Dh) == 2)
+    if (wide_group_chunks(Dh) == 2)
       by_group<2>(which, out);
     else
       by_group<4>(which, out);
@@ -1278,7 +1196,7 @@ extern "C" int rtt_flash_attention_bwd_dq(const void* q, const void* k, const vo
 // 64) and the shared memory of its dK/dV (dkv != 0) or dQ block, as
 // ops/flash_attention.py counts them.
 extern "C" int rtt_flash_attention_bwd_wide_groups(int Dh) {
-  return Dh > kNarrowMaxDh ? wide_bwd_groups(Dh) : 0;
+  return Dh > kNarrowMaxDh ? wide_groups(Dh) : 0;
 }
 
 extern "C" long long rtt_flash_attention_bwd_wide_smem(int dkv) {

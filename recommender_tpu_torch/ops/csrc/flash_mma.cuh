@@ -8,15 +8,18 @@
 // registers (by_head_dim). Dh > 64 ("wide") would not fit there: at DP 128
 // the rows and the accumulators alone take ~200 registers, and a long
 // block's double-buffered 64-row tiles 135 KB (over 227 KB at 256). So a
-// wide Dh is cut into chunks of kC = 64 columns, and the products over Dh
-// (S = Q K^T, dP = dO V^T) add up chunk by chunk, their A rows read from
-// shared memory. The forward and the fused backward make each output (O,
-// dK and dV, dQ) kC columns at a time, the products over Dh computed again
-// for each chunk; a long forward block holds one chunk of each tile it
-// needs ([kTile][kCs] floats). The long backward's two kernels give a block
-// a group of up to 4 output chunks and compute S and dP once per streamed
-// tile (flash_attention_bwd.cu, "wide long route"). Shared memory and
-// registers do not grow with Dh: any Dh >= 1 runs.
+// wide Dh is cut into chunks of kC = 64 columns. The products over Dh (S =
+// Q K^T, dP = dO V^T) add up chunk by chunk, their A rows read from shared
+// memory, once per streamed tile for a group of up to 4 output chunks (256
+// columns), whose accumulators a warp keeps in registers: the long
+// forward's and the long backward's blocks and the fused forward's warps
+// own such a group (flash_attention.cu, "wide head dims";
+// flash_attention_bwd.cu, "wide long route"). The long routes stream their
+// chunks through a ring of swizzled 64 x 64 tiles (swz, load_swz_async)
+// whose copies stay in flight under the products. The fused backward still
+// makes dK, dV and dQ kC columns at a time, S^T and dP^T computed again for
+// each chunk. Shared memory and registers do not grow with Dh: any Dh >= 1
+// runs.
 //
 // Layout of every tensor as the kernels see it: q, k, v, o and their
 // gradients f32 [B, L, H, Dh] (heads-last, contiguous); seg int32 [B, L];
@@ -297,31 +300,94 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
 }
 
 // ------------------------------------------------------------ wide head dims
-// A chunk tile: kTile rows of kC columns of one head, [kTile][kCs] floats.
-// Columns past the chunk's own width (its last, partial chunk) hold zeros or
-// an earlier chunk's inputs: A reads give 0 there (View::cols), and B reads
-// meet those zeros, or land in output columns that are not stored.
-constexpr int kCs = Long<kC>::kRs;
-constexpr int kCTile = Long<kC>::kTileFloats;
-
 __host__ __device__ constexpr int chunks(int Dh) { return (Dh + kC - 1) / kC; }
 
-// Columns [d0, d0 + w) of rows [row0, row0 + n) of one head (base as in
-// load_tile_async) into a chunk tile.
-__device__ __forceinline__ void load_chunk_async(float* dst, const float* __restrict__ x,
-                                                 int64_t base, int d0, int row0, int n, int HD,
-                                                 int w, bool vec, int tid) {
-  load_tile_async<kC, kCs>(dst, x, base + d0, row0, n, HD, w, vec, tid);
+// Column groups: a warp of the wide forward and of the long backward keeps
+// its outputs on a group of 2 chunks where Dh <= 128, else 4 (256 columns;
+// 128 floats of O a lane in the forward), and computes the products over
+// Dh once per group: the long routes' grid y counts the groups, the fused
+// forward's warps loop over them. Once up to Dh 256, twice at 257-512.
+// Mirrored by ops/flash_attention.py::wide_fwd_groups and wide_bwd_groups.
+__host__ __device__ constexpr int wide_group_chunks(int Dh) { return chunks(Dh) <= 2 ? 2 : 4; }
+
+__host__ __device__ constexpr int wide_groups(int Dh) {
+  return (chunks(Dh) + wide_group_chunks(Dh) - 1) / wide_group_chunks(Dh);
 }
 
-// The chunk order of a block that owns output chunk c of nd: every other
-// chunk first, then c, so that the last chunk the products read is the
-// one the outputs need.
-__device__ __forceinline__ int chunk_at(int i, int c, int nd) { return (c + 1 + i) % nd; }
+constexpr int kSwzTile = kTile * kC;  // floats of a swizzled chunk tile
 
-// Zeros into a block's first n16 * 16 bytes of dynamic shared memory.
-__device__ __forceinline__ void zero_smem(float4* smem, int n16, int tid, int nthreads) {
-  for (int e = tid; e < n16; e += nthreads) smem[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+// A chunk tile without pad: element (r, c) at r * kC + (c ^ 4 (r & 7)). The
+// XOR puts the A reads, the row reads (B = X^T) and the accumulator-order
+// reads (load_b_acc's) of a warp on 32 banks, and keeps each 16-byte piece
+// of a row whole for cp.async.
+__device__ __forceinline__ int swz(int r, int c) { return r * kC + (c ^ ((r & 7) << 2)); }
+
+// cp.async of 16 (4) bytes that writes zeros where !in (src-size 0; src
+// stays a valid address).
+__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_or_zero(void* dst, const void* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Waits until at most n of the thread's cp.async groups are pending (n
+// known only at run time; more than 6 waits for 6).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// A whole swizzled chunk tile by cp.async: columns [0, w) of rows [row0, row0
+// + n) of one head (base: the offset of (b, 0, h, d0)), zeros in every other
+// row and column. So the products read it without bounds: zeros add nothing.
+// 16 bytes a copy where vec (16 threads a row), else 4 (64 threads a row).
+__device__ __forceinline__ void load_swz_async(float* dst, const float* __restrict__ x,
+                                               int64_t base, int row0, int n, int HD, int w,
+                                               bool vec, int tid, int nthreads) {
+  const int per_row = vec ? kC / 4 : kC, c = (tid % per_row) * (vec ? 4 : 1);
+  const int r0 = tid / per_row, step = nthreads / per_row;
+  const float* src = x + base + (int64_t)(row0 + r0) * HD + c;
+  for (int r = r0; r < kTile; r += step, src += (int64_t)step * HD) {
+    const bool in = r < n && c < w;
+    if (vec)
+      cp_async16_or_zero(dst + swz(r, c), in ? src : x, in);
+    else
+      cp_async4_or_zero(dst + swz(r, c), in ? src : x, in);
+  }
+}
+
+// acc[i] += X Y_i^T over one chunk of ks steps of 8 columns, X the warp's 16
+// rows from r0 of a swizzled chunk tile (A fragments), Y_i its 8 rows at j0 +
+// 8 i (B fragments), live pieces only. Rows r0 + g, r0 + g + 8 and j0 + 8 i
+// + g all swizzle by 4 g, so one column offset a step serves every read.
+template <int NT>
+__device__ __forceinline__ void wide_score_products(const float* x, const float* y, int r0,
+                                                    int j0, int ks, const bool (&live)[NT],
+                                                    Lane l, float (&acc)[NT][4]) {
+  const int sw = 4 * l.g, ra = (r0 + l.g) * kC, rb = (j0 + l.g) * kC;
+#pragma unroll 2
+  for (int kk = 0; kk < ks; ++kk) {
+    const int c = (8 * kk + l.t) ^ sw, c4 = c ^ 4;
+    const FragA a = split_a(x[ra + c], x[ra + 8 * kC + c], x[ra + c4], x[ra + 8 * kC + c4]);
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      if (live[i]) mma3(acc[i], a, split_b(y[rb + 8 * i * kC + c], y[rb + 8 * i * kC + c4]));
+  }
 }
 
 // Columns [Dh, DP) of ntiles consecutive tiles, which the copies never
@@ -375,6 +441,20 @@ void launch_kernel(Kernel kernel, dim3 grid, int threads, int64_t smem,
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
   kernel<<<grid, threads, smem, stream>>>(args...);
+}
+
+// Registers, local memory (spills and stack) bytes a thread and blocks an SM
+// of a kernel, as a launch of `threads` threads and `smem` bytes configures it.
+template <typename Kernel>
+void kernel_info(Kernel kernel, int threads, int64_t smem, int* out) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  cudaFuncAttributes attr{};
+  cudaFuncGetAttributes(&attr, kernel);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, threads, (size_t)smem);
 }
 
 // Launch<DP, kTail4>::run(args...) for Dh padded to DP, a multiple of 8

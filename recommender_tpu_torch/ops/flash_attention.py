@@ -27,9 +27,11 @@ Each file instantiates its kernels by head dim: Dh up to 64 padded to a
 multiple of 8, the rows a warp owns kept in registers; any wider Dh in
 chunks of 64 columns (``csrc/flash_mma.cuh``, "Head dims"), on both routes
 and with the same fused shared-memory counts, so the routes do not depend
-on the instantiation. Above Dh 64 the long backward's blocks own a group
-of output columns (``wide_bwd_groups``) and a fixed shared memory
-(``wide_bwd_smem_bytes``).
+on the instantiation. Above Dh 64 the long forward's blocks, the fused
+forward's warps and the long backward's blocks own a group of output
+columns (``wide_fwd_groups``, ``wide_bwd_groups``), over which they
+compute the scores once; the long backward's blocks take a fixed shared
+memory (``wide_bwd_smem_bytes``).
 
 Semantics are the TPU kernel's ``SegmentIds(seg, seg)`` with
 ``seg = valid``: key j is visible to query i iff ``valid[b, i] ==
@@ -89,18 +91,33 @@ def fused_smem_bytes(L: int, H: int, Dh: int) -> int:
     return 4 * (4 * _span(L, H, Dh) + L * lds + 2 * H * L + L)
 
 
-def wide_bwd_groups(Dh: int) -> int:
-    """Blocks in grid y of the long backward's two kernels above Dh 64 (0 at
-    or below it): column groups of 2 chunks of 64 up to Dh 128, else of 4
-    (256 columns). A block computes S and dP over the whole head dim once per
-    streamed tile, so this is how many times each is computed. The same
-    count as ``rtt_flash_attention_bwd_wide_groups`` in
-    ``csrc/flash_attention_bwd.cu``."""
+def _column_groups(Dh: int) -> int:
+    """Groups of output columns above Dh 64 (0 at or below it): 2 chunks of
+    64 columns up to Dh 128, else 4 (256 columns). The same count as
+    ``wide_groups`` in ``csrc/flash_mma.cuh``."""
     if Dh <= 64:
         return 0
     chunks = -(-Dh // 64)
     per_group = 2 if chunks <= 2 else 4
     return -(-chunks // per_group)
+
+
+def wide_fwd_groups(Dh: int) -> int:
+    """Column groups of the forward above Dh 64 (0 at or below it): blocks
+    in grid y of the long kernel, passes of the fused kernel's warps over
+    each head. A warp keeps O on a group (64 or 128 floats a lane) and
+    computes S over the whole head dim once per group and block of keys:
+    once up to Dh 256, twice at 257-512. The count
+    ``rtt_flash_attention_fwd_wide_groups`` gives."""
+    return _column_groups(Dh)
+
+
+def wide_bwd_groups(Dh: int) -> int:
+    """Blocks in grid y of the long backward's two kernels above Dh 64 (0 at
+    or below it), by the same rule. A block computes S and dP over the whole
+    head dim once per streamed tile, so this is how many times each is
+    computed. The count ``rtt_flash_attention_bwd_wide_groups`` gives."""
+    return _column_groups(Dh)
 
 
 def wide_bwd_smem_bytes(kernel: str) -> int:

@@ -82,11 +82,13 @@ def _port_grads(q, k, v, valid, cot, device="cpu"):
 
 
 @pytest.mark.parametrize("B,L,H,Dh", [(2, 11, 4, 9), (3, 130, 2, 9), (2, 11, 2, 72),
-                                     (1, 130, 1, 128), (2, 11, 1, 130)])
+                                     (1, 130, 1, 128), (2, 11, 1, 130), (2, 11, 1, 192),
+                                     (1, 11, 2, 256)])
 def test_ref_matches_jax_flash_interpret(pallas_interpret, B, L, H, Dh):
     """L not a multiple of 128 (11, and 130 which spans two 128-blocks),
-    Dh 9 and the wide 72, 128 and 130 (which JAX pads to 256 lanes), with
-    an all-pad-history row: forward on valid rows, q/k/v gradients on every
+    Dh 9 and the wide 72, 128, 130, 192 and 256 (which JAX pads to 256
+    lanes; 256 is the widest one column group takes), with an
+    all-pad-history row: forward on valid rows, q/k/v gradients on every
     row."""
     import jax
     import jax.numpy as jnp
@@ -314,6 +316,110 @@ def test_wide_bwd_groups_at_each_boundary(Dh, groups):
     to Dh 128, else 4 (256 columns): one group, so S and dP are computed once
     per (block, tile), up to Dh 256; 2 at 257-512; 3 at 520."""
     assert fa.wide_bwd_groups(Dh) == groups
+
+
+@pytest.mark.parametrize("Dh,groups", [(64, 0), (65, 1), (128, 1), (129, 1), (256, 1),
+                                       (257, 2), (512, 2), (520, 3)])
+def test_wide_fwd_groups_at_each_boundary(Dh, groups):
+    """The forward's warps above Dh 64 keep O on 2 chunks of 64 columns up
+    to Dh 128, else on 4 (256 columns): one group, so S is computed once per
+    block of keys, up to Dh 256; 2 at 257-512; 3 at 520."""
+    assert fa.wide_fwd_groups(Dh) == groups
+
+
+def _wide_fwd_ring(Dh, group):
+    """The wide long forward's ring as ``flash_fwd_wide_long_kernel`` sets
+    it up (``csrc/flash_attention.cu``, "wide long route"): the chunks nd,
+    the group's chunks NC, its first chunk and how many it has, whether Q
+    streams (nd > NC), the block's slots (``wide_fwd_slots``: 6 at NC 2, 7
+    at NC 4), the ring's R, the copies an S step takes (Q's where it
+    streams, then K's), a tile's S copies kd and all its copies."""
+    nd = -(-Dh // 64)
+    nc = 2 if nd <= 2 else 4
+    g0 = group * nc
+    q_stream = nd > nc
+    slots = 6 if nc == 2 else 7
+    take = 2 if q_stream else 1
+    ngc = min(nc, nd - g0)
+    return dict(nd=nd, nc=nc, g0=g0, ngc=ngc, q_stream=q_stream, slots=slots,
+                ring=slots - (0 if q_stream else nd), take=take, kd=take * nd,
+                per_tile=take * nd + ngc)
+
+
+def _simulate_wide_fwd_ring(Dh, L, group):
+    """Runs the kernel's schedule of copies and steps for one block and
+    checks it: every step finds its copies landed (the wait count it asks
+    cp.async for), in ring slots that no later copy has taken yet, holding
+    the tensor and chunk the step needs; a copy takes a slot, and a tile's
+    seg a seg buffer, only once every step that reads it has passed a
+    barrier; R - take copies stay in flight under each step. Returns the
+    number of steps."""
+    r = _wide_fwd_ring(Dh, group)
+    R, kd, per_tile = r["ring"], r["kd"], r["per_tile"]
+    nt = -(-L // 64)
+    total = nt * per_tile
+
+    def what(i):  # (tile, tensor, chunk) of copy i
+        t, k = divmod(i, per_tile)
+        if k >= kd:
+            return t, "v", r["g0"] + k - kd
+        d, j = divmod(k, r["take"])
+        return t, "q" if j < r["take"] - 1 else "k", d
+
+    slot, seg_buf = {}, {}
+    masked = set()  # tiles whose seg every warp has read (their first step passed)
+    state = dict(issued=0)
+
+    def issue(upto, last):
+        while state["issued"] <= upto and state["issued"] < total:
+            i = state["issued"]
+            prev = slot.get(i % R)
+            assert prev is None or prev <= last, (Dh, L, i, prev)
+            slot[i % R] = i
+            t, k = divmod(i, per_tile)
+            if k == 0:
+                assert seg_buf.get(t % 2) is None or seg_buf[t % 2] in masked, (Dh, L, t)
+                seg_buf[t % 2] = t
+            state["issued"] += 1
+
+    last, steps = -1, 0
+    issue(R - 1, last)
+    for t in range(nt):
+        plan = [(r["take"], [("q", d)] * (r["take"] - 1) + [("k", d)]) for d in range(r["nd"])]
+        plan += [(1, [("v", r["g0"] + c)]) for c in range(r["ngc"])]
+        for j, (take, need) in enumerate(plan):
+            pending = state["issued"] - 1 - (last + take)
+            assert pending >= 0, (Dh, L, t, j)  # the step's last copy was issued
+            # the barrier: every earlier step is done
+            if j == 1:
+                masked.add(t)
+            issue(last + R, last)
+            assert state["issued"] - 1 - (last + take) == min(R - take, total - 1 - last - take)
+            for i, (tensor, chunk) in zip(range(last + 1, last + take + 1), need):
+                assert slot[i % R] == i and what(i) == (t, tensor, chunk), (Dh, L, t, j, i)
+            if j == 0:
+                assert seg_buf[t % 2] == t
+            last += take
+            steps += 1
+        masked.add(t)
+    assert last == total - 1 and state["issued"] == total
+    return steps
+
+
+@pytest.mark.parametrize("L", [1, 64, 101, 1001])
+def test_wide_fwd_ring_schedule(L):
+    """The wide long forward's ring over Dh 65-599 and every column group:
+    resident Q (Dh <= 256, 2 to 4 chunks beside a ring of 3 or 4) and
+    streamed Q (a ring of 7, two copies a step), 1 to 16 key tiles. A tile
+    takes nd + ngc steps, and a block's slots fit two blocks an SM (228 KB,
+    1 KB of it reserved for each block)."""
+    for Dh in range(65, 600):
+        for group in range(fa.wide_fwd_groups(Dh)):
+            r = _wide_fwd_ring(Dh, group)
+            assert r["ring"] >= 3 and (r["q_stream"] or r["ring"] + r["nd"] == r["slots"])
+            steps = _simulate_wide_fwd_ring(Dh, L, group)
+            assert steps == -(-L // 64) * (r["nd"] + r["ngc"])
+            assert 2 * (4 * (r["slots"] * 64 * 64 + 2 * 64) + 1024) <= 233_472
 
 
 @pytest.mark.parametrize("kernel,nbytes", [("dkv", 231_040), ("dq", 230_016)])
@@ -550,6 +656,117 @@ def test_wide_backward_is_bitwise_repeatable_and_counted(cuda_device, monkeypatc
         assert np.array_equal(a, b)
     want = _launched(fwd_route, "long", times=2)
     assert _counts() == {c: n[c] + want[c] for c in _COUNTERS}
+
+
+def _wide_fwd_cases():
+    """(route, B, L, H, Dh, valid) for the wide forward kernels alone: the
+    long one at Dh 65-520 (one column group and the first of two, Q resident
+    at 2-4 chunks and streamed above 256) at L 1, 101, 200 and 1001, H 1 and
+    2; the fused one at Dh 72, 128, 200 and 520 at L 1, 16, 101 and 128 where
+    its block fits; all-valid and target-only masks at a few of each."""
+    cases = []
+    Ls = (1, 101, 200, 1001)
+    for i, Dh in enumerate((65, 127, 128, 129, 192, 255, 256, 257, 320, 520)):
+        for L in (Ls[i % 2], Ls[2 + i % 2]):
+            cases.append(("long", 2, L, 1 + i % 2, Dh, "ragged"))
+    for Dh in (72, 128, 200, 520):
+        for L in (1, 16, 101, 128):
+            H = max(h for h in (1, 2) if h == 1 or fa.fwd_route(L, h, Dh) == "fused")
+            if fa.fwd_route(L, H, Dh) == "fused":
+                cases.append(("fused", 3, L, H, Dh, "ragged"))
+    for valid in ("all", "target_only"):
+        cases += [("long", 2, 1001, 2, 128, valid), ("long", 2, 101, 2, 256, valid),
+                  ("long", 2, 200, 1, 520, valid), ("fused", 4, 101, 1, 128, valid),
+                  ("fused", 2, 16, 1, 520, valid)]
+    return cases
+
+
+def _ref_lse(q, k, valid):
+    """The row log-sum-exp [B, H, L] of the plain version's masked scores."""
+    seg = valid.to(torch.int32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * fa._scale(q.shape[-1])
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    return torch.logsumexp(s.masked_fill(~same, float("-inf")), dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,B,L,H,Dh,valid_kind", _wide_fwd_cases())
+def test_wide_forward_matches_ref(cuda_device, monkeypatch, route, B, L, H, Dh, valid_kind):
+    """Each wide forward kernel, forced onto its route, against the plain
+    version: o within FWD_REL_TOL of max|plain|, the lse it saves for the
+    backward within 1e-5 of max(1, max|lse|); one launch, on that route."""
+    q, k, v, valid, _ = _inputs(B, L, H, Dh, seed=L + Dh)
+    if valid_kind == "all":
+        valid[:] = 1.0
+    elif valid_kind == "target_only":
+        valid[:, :-1] = 0.0
+    monkeypatch.setattr(fa, "fwd_route", lambda *shape: route)
+    qt, kt, vt, vd = (torch.tensor(x, device=cuda_device) for x in (q, k, v, valid))
+    before = _counts()
+    o, lse = fa._forward(qt, kt, vt, vd.to(torch.int32))
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _counts().items()}
+    assert launched == {**_launched(route, "fused"), "bwd": 0}
+    assert _rel_err(o, fa.flash_mha_ref(qt, kt, vt, vd)) <= FWD_REL_TOL
+    assert _rel_err(lse, _ref_lse(qt, kt, vd)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,B,L,H,Dh", [("long", 2, 1001, 2, 128), ("long", 2, 101, 2, 256),
+                                            ("long", 2, 101, 1, 257), ("long", 2, 70, 1, 520),
+                                            ("fused", 2, 101, 1, 128), ("fused", 2, 16, 1, 520)])
+def test_wide_forward_is_bitwise_repeatable_and_counted(cuda_device, monkeypatch, route, B, L,
+                                                        H, Dh):
+    """The wide forward kernels (one and several column groups, resident and
+    streamed Q, 16 key tiles) give the same bits twice through ``flash_mha``,
+    with one launch on their route each."""
+    monkeypatch.setattr(fa, "fwd_route", lambda *shape: route)
+    q, k, v, valid, _ = _inputs(B, L, H, Dh, seed=Dh)
+    ts = [torch.tensor(x, device=cuda_device) for x in (q, k, v, valid)]
+    n = _counts()
+    first = fa.flash_mha(*ts)
+    second = fa.flash_mha(*ts)
+    assert torch.equal(first, second)
+    want = {c: n[c] for c in _COUNTERS}
+    want["fwd"] += 2
+    want[f"fwd_{route}"] += 2
+    assert _counts() == want
+
+
+@pytest.mark.cuda
+def test_wide_fwd_groups_match_the_kernel(cuda_device):
+    """The Python count of the wide forward's column groups is the one the
+    kernels use (the long kernel's grid y)."""
+    import ctypes
+
+    fn = _build.load("flash_attention").rtt_flash_attention_fwd_wide_groups
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for Dh in (1, 64, 65, 72, 128, 129, 200, 256, 257, 320, 512, 513, 520, 1000):
+        assert fn(Dh) == fa.wide_fwd_groups(Dh)
+
+
+def _fwd_wide_info(fused, L, H, Dh):
+    """(registers, local bytes, blocks an SM) of a wide forward kernel."""
+    import ctypes
+
+    fn = _build.load("flash_attention").rtt_flash_attention_fwd_wide_info
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    assert fn(int(fused), L, H, Dh, ctypes.addressof(out)) == 0
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,L,H,Dh,blocks", [("long", 1001, 4, 128, 2), ("long", 101, 2, 256, 2),
+                                                 ("fused", 101, 1, 128, 1), ("fused", 64, 1, 256, 1)])
+def test_wide_fwd_kernels_do_not_spill(cuda_device, route, L, H, Dh, blocks):
+    """Each wide forward kernel (O on 2 and on 4 chunks a warp) keeps its
+    accumulators in registers (no local memory: no spills, no stack), with
+    the blocks an SM it is built for: two long blocks, one fused block (it
+    holds the batch row)."""
+    _, local_bytes, got_blocks = _fwd_wide_info(route == "fused", L, H, Dh)
+    assert local_bytes == 0
+    assert got_blocks == blocks
 
 
 @pytest.mark.cuda
