@@ -89,22 +89,29 @@ Phases, one JSON line each (k2 one per shape):
                   and L 129 (long routes), B 256, and at the TPU probe's
                   B 128, L 1001, H 4 with Dh 9, 64 and 128 (long routes);
                   then the Dh > 64 kernels at BST's rows with one head of
-                  Dh 128 (fused forward, long backward) and of Dh 72
-                  (fused both ways), and Dh 256 at B 256, H 2: the
+                  Dh 128 (long forward, fused backward) and of Dh 72
+                  (fused both ways), and Dh 256 at B 256, H 2 (long
+                  forward, fused backward): the
                   routes ``fwd_route`` and ``bwd_route`` pick, errors,
                   bitwise repeatability; times of the forward, of forward +
                   backward, of the backward and of each kernel alone
-                  (``kernel_ms``: the forward's route, the backward's; where
-                  the forward is fused, ``fwd_long_route`` holds the long
-                  forward's time and error on the same inputs),
-                  against the plain version and against
+                  (``kernel_ms``: the forward's route, the backward's;
+                  ``fwd_long_route``, ``fwd_fused_route``,
+                  ``bwd_long_route`` and ``bwd_fused_route`` hold the time
+                  and error of the route not taken, on the same inputs,
+                  where it takes the shape), against the plain version and
+                  against
                   ``scaled_dot_product_attention`` with the same mask (the
                   yardstick, and the backend it took); each kernel's bound
                   from bytes and FLOPs, and its share (CUDA events, median
                   of 25); above Dh 64 each wide kernel's registers, local
                   memory bytes and blocks an SM (``kernel_info``: the
-                  forward on its route, the long backward's two; the long
-                  forward's beside its time in ``fwd_long_route``).
+                  forward on its route, the fused backward or the long
+                  backward's two; the other routes' beside their times).
+                  Then ``k2_routes``: both routes of each direction alone
+                  at 17 wide shapes on BST's rows (L 33-101, H 1-2, Dh
+                  65-256: ``K2_ROUTE_SWEEP``), which one each rule picks
+                  and which one was faster.
 5. train        — 50 DLRM Trainer steps at full width, then ``evaluate`` on
                   20 held-out batches; K1's launch count must equal the steps.
 6. card_cpu     — a small f32-table DLRM for 3 steps from one init on the
@@ -124,8 +131,8 @@ Phases, one JSON line each (k2 one per shape):
                   and on the CPU (its plain version); the losses must agree.
     bst_dh128   — BST on the same data with item_dim = cat_dim = 64 and one
                   head (Dh 128): 30 steps with flash attention (exact K2
-                  launch counts on the Dh > 64 kernels: the fused forward,
-                  the long backward), then 30 from the same init with
+                  launch counts on the Dh > 64 kernels: the long forward,
+                  the fused backward), then 30 from the same init with
                   plain attention: the losses must agree.
 10. dien_train  — 50 DIEN Trainer steps at full width (f32 tables, the
                   auxiliary-loss task), then ``evaluate`` on 20 held-out
@@ -297,7 +304,8 @@ takes on CUDA tensors (``probe_gloo_cuda``), and
     python3 chip_smoke.py --k2
 
 runs phase k2 alone (every K2 kernel against ``flash_mha_ref`` at its
-nine cases, with times, bounds and SDPA's), after the build, and
+nine cases, with times, bounds and SDPA's, then ``k2_routes``), after the
+build, and
 
     python3 chip_smoke.py --ptxas
 
@@ -925,9 +933,10 @@ def k2_valid(history: np.ndarray, device) -> torch.Tensor:
 def k2_shapes(device, bst_train: dict) -> dict:
     """Phase k2's shapes, key: (case name, valid, heads, head dim, the
     forward's route, the backward's). Above Dh 64 the kernels work in
-    chunks of 64 columns (the long backward's blocks on groups of up to 4):
-    BST's L 101 with one head of Dh 128 (item_dim = cat_dim = 64) and of
-    the odd Dh 72, the probe's L 1001 at Dh 128, and the wide Dh 256."""
+    chunks of 64 columns: BST's L 101 with one head of Dh 128 (item_dim =
+    cat_dim = 64) and of the odd Dh 72, the probe's L 1001 at Dh 128, and
+    the wide Dh 256. The backward is fused at every L <= 128; the forward
+    at Dh <= 128 where H * Dh is not a multiple of 32 (``fa.fwd_route``)."""
     def history_valid(max_len, batch):
         gen = SyntheticSequence(num_items=BST_ITEMS, num_cats=BST_CATS, max_len=max_len, seed=SEED)
         return k2_valid(gen.sample(batch, seed=1)["pos_his_item"], device)
@@ -941,9 +950,9 @@ def k2_shapes(device, bst_train: dict) -> dict:
         "r5_dh9": ("probe_b128_L1001_Dh9", r5_valid, 4, 9, "long", "long"),
         "r5_dh64": ("probe_b128_L1001_Dh64", r5_valid, 4, 64, "long", "long"),
         "r5_dh128": ("probe_b128_L1001_Dh128", r5_valid, 4, 128, "long", "long"),
-        "bst_dh128": ("b1024_L101_Dh128", bst_valid, 1, 128, "fused", "long"),
+        "bst_dh128": ("b1024_L101_Dh128", bst_valid, 1, 128, "long", "fused"),
         "bst_dh72": ("b1024_L101_Dh72", bst_valid, 1, 72, "fused", "fused"),
-        "dh256": ("b256_L101_Dh256", bst_valid[:256], 2, 256, "long", "long"),
+        "dh256": ("b256_L101_Dh256", bst_valid[:256], 2, 256, "long", "fused"),
     }
 
 
@@ -999,6 +1008,19 @@ def k2_long_info(kernel: str, head_dim: int) -> dict:
     return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
 
 
+def k2_fused_bwd_info(L: int, heads: int, head_dim: int) -> dict:
+    """Registers, local memory bytes a thread (spills and stack) and blocks an
+    SM of the wide fused backward (Dh > 64) at [., L, heads, head_dim], as
+    its launch configures it (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_fused_wide_info
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check(fn(L, heads, head_dim, ctypes.addressof(out)) == 0,
+          f"K2 fused backward info at L {L}, Dh {head_dim}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
+
+
 def k2_fwd_wide_info(route: str, L: int, heads: int, head_dim: int) -> dict:
     """Registers, local memory bytes a thread (spills and stack) and blocks an
     SM of the wide forward kernel (Dh > 64) of ``route`` at [., L, heads,
@@ -1050,45 +1072,27 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
         plain_fwd_ms = cuda_ms(lambda: fa.flash_mha_ref(q, k, v, valid))
     fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha))
     plain_fwd_bwd_ms = cuda_ms(lambda: fwd_bwd(fa.flash_mha_ref))
-    # the backward as autograd runs it, then each kernel alone
+    # the backward as autograd runs it, then each kernel alone on every route
     o = fa.flash_mha(*qkv, valid)
     saved = o.grad_fn.saved_tensors
-    sq, sk, sv, seg, out, lse = saved
     bwd_ms = cuda_ms(lambda: fa._backward(*saved, cot))
-    fns = fa._kernel_fns()
-    dq_, dk_, dv_, o_ = (torch.empty_like(q) for _ in range(4))
-    lse_ = torch.empty_like(lse)
-    dims = (B, L, heads, head_dim, 1.0 / head_dim ** 0.5)
-    fwd_ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, o_, lse_)]
-    kernel_ms = {"fwd": cuda_ms(lambda: fa._launch(
-        "forward", fns[f"fwd_{fwd_route}"], device, *fwd_ptrs, *dims))}
-    long_route = {}  # where the fused forward runs: the long one on the same inputs
-    if fwd_route == "fused":
-        long_route["ms"] = cuda_ms(lambda: fa._launch(
-            "long forward", fns["fwd_long"], device, *fwd_ptrs, *dims))
-        long_route["rel_err"] = float((o_ - want[0]).abs().max()) / scale["o"]
-        check(long_route["rel_err"] <= K2_FWD_REL_TOL,
-              f"K2 {name}: the long forward off by {long_route['rel_err']} of max|plain|")
+    routes = k2_route_kernels(device, saved, cot, want, scale)
+    kernel_ms = {"fwd": routes[f"fwd_{fwd_route}"]["ms"]}
+    kernel_info = {"fwd": routes[f"fwd_{fwd_route}"]["info"]} if head_dim > 64 else {}
     if route == "fused":
-        ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, out, cot, lse, dq_, dk_, dv_)]
-        kernel_ms["bwd"] = cuda_ms(lambda: fa._launch(
-            "fused backward", fns["bwd_fused"], device, *ptrs, *dims))
+        kernel_ms["bwd"] = routes["bwd_fused"]["ms"]
+        if head_dim > 64:
+            kernel_info["bwd"] = routes["bwd_fused"]["info"]
     else:
-        di = (cot * out).sum(-1).transpose(1, 2).contiguous()
-        common = [t.data_ptr() for t in (sq, sk, sv, seg, cot, lse, di)]
-        kernel_ms["bwd_dkv"] = cuda_ms(lambda: fa._launch(
-            "dK/dV", fns["bwd_dkv"], device, *common, dk_.data_ptr(), dv_.data_ptr(), *dims))
-        kernel_ms["bwd_dq"] = cuda_ms(lambda: fa._launch(
-            "dQ", fns["bwd_dq"], device, *common, dq_.data_ptr(), *dims))
-    kernel_info = ({kn: k2_long_info(kn, head_dim) for kn in ("bwd_dkv", "bwd_dq")}
-                   if route == "long" else {})
-    if head_dim > 64:  # the wide forward on its route, and the long one beside the fused
-        kernel_info["fwd"] = k2_fwd_wide_info(fwd_route, L, heads, head_dim)
-        if long_route:
-            long_route["info"] = k2_fwd_wide_info("long", L, heads, head_dim)
+        kernel_ms["bwd_dkv"] = routes["bwd_long"]["dkv_ms"]
+        kernel_ms["bwd_dq"] = routes["bwd_long"]["dq_ms"]
+        kernel_info.update(routes["bwd_long"]["info"])
+    # the other route of each direction on the same inputs, where it takes the shape
+    other = {f"{d}_{r}_route": routes.get(f"{d}_{r}", {}) if picked != r else {}
+             for d, picked in (("fwd", fwd_route), ("bwd", route)) for r in ("fused", "long")}
     o_ref = fa.flash_mha_ref(*qkv, valid)
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_ref, qkv, cot, retain_graph=True))
-    del o, o_ref, saved, sq, sk, sv, seg, out, lse, o_, lse_
+    del o, o_ref, saved
 
     # the yardstick: one scaled_dot_product_attention call, [B, H, L, Dh] with
     # the segment-equality mask (True = may attend)
@@ -1112,8 +1116,7 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
          tolerance=f"|err| <= tol * max(1, max|plain|), tol {tol}",
          bitwise_repeatable=bitwise, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
          fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms,
-         bwd_ms=bwd_ms, kernel_ms=kernel_ms, kernel_info=kernel_info,
-         fwd_long_route=long_route,
+         bwd_ms=bwd_ms, kernel_ms=kernel_ms, kernel_info=kernel_info, **other,
          plain_bwd_ms=plain_bwd_ms, library_backend=backend, library_fwd_rel_err=lib_err,
          library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms,
          library_fwd_bwd_ms=library_fwd_bwd_ms,
@@ -1122,13 +1125,116 @@ def phase_k2(device, name: str, valid: torch.Tensor, heads: int, head_dim: int) 
     for n in names:
         check(rel_err[n] <= tol[n], f"K2 {name}: {n} off by {rel_err[n]} of max|plain|")
     check(bitwise, f"K2 {name}: two launches differ")
-    if head_dim > 64:  # the wide kernels keep everything in registers
-        for kn, info in [*kernel_info.items(), ("fwd_long", long_route.get("info", {}))]:
-            check(info.get("local_bytes", 0) == 0, f"K2 {name}: {kn} uses local memory: {info}")
+    k2_check_routes(name, routes, head_dim)
     return dict(abs_err=abs_err, fwd_route=fwd_route, route=route, fwd_ms=fwd_ms,
-                plain_fwd_ms=plain_fwd_ms, kernel_info=kernel_info, fwd_long_route=long_route,
+                plain_fwd_ms=plain_fwd_ms, kernel_info=kernel_info, other_routes=other,
                 kernel_ms=kernel_ms, plain_bwd_ms=plain_bwd_ms, bounds=bounds,
                 library_fwd_ms=library_fwd_ms, library_bwd_ms=library_bwd_ms)
+
+
+def k2_check_routes(name: str, routes: dict, head_dim: int):
+    """Every route's kernels within the tolerance of the plain version and,
+    above Dh 64, without local memory (no spills, no stack)."""
+    for kn, r in routes.items():
+        errs = r["rel_err"] if isinstance(r["rel_err"], dict) else {"o": r["rel_err"]}
+        for n, e in errs.items():
+            tol = K2_FWD_REL_TOL if n == "o" else K2_BWD_REL_TOL
+            check(e <= tol, f"K2 {name}: {kn} {n} off by {e} of max|plain|")
+        if head_dim > 64:
+            infos = r["info"].values() if kn == "bwd_long" else [r["info"]]
+            for info in infos:
+                check(info["local_bytes"] == 0, f"K2 {name}: {kn} uses local memory: {info}")
+
+
+def k2_route_kernels(device, saved, cot, want, scale) -> dict:
+    """Each K2 kernel alone on every route that takes the shape, on the same
+    inputs (``saved``: q, k, v, seg, o and lse of the forward): the forward's
+    ``fwd_fused`` and ``fwd_long`` (o against the plain version's), the fused
+    backward ``bwd_fused`` and the long one, ``bwd_long``: di as the wrapper
+    computes it, then the dK/dV and dQ kernels (dq, dk, dv against the plain
+    version's). Each with its ms (CUDA events, median of 25; ``bwd_long``:
+    the three summed, each beside it), its error as a share of max(1,
+    max|plain|), and its kernels' registers, local bytes and blocks an SM
+    (``info``; the forward's above Dh 64 only)."""
+    sq, sk, sv, seg, out, lse = saved
+    B, L, heads, head_dim = sq.shape
+    fns = fa._kernel_fns()
+    dims = (B, L, heads, head_dim, 1.0 / head_dim ** 0.5)
+    dq_, dk_, dv_, o_ = (torch.empty_like(sq) for _ in range(4))
+    lse_ = torch.empty_like(lse)
+    res = {}
+
+    def bwd_err():
+        return {n: float((t - w).abs().max()) / scale[n]
+                for n, t, w in (("dq", dq_, want[1]), ("dk", dk_, want[2]), ("dv", dv_, want[3]))}
+
+    fused_fits = L <= fa.FUSED_MAX_L
+    fwd_ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, o_, lse_)]
+    for r in ("fused", "long"):
+        if r == "fused" and not (fused_fits and fa.fwd_smem_bytes(*sq.shape[1:]) <= fa.MAX_BLOCK_SMEM):
+            continue
+        ms = cuda_ms(lambda: fa._launch(f"{r} forward", fns[f"fwd_{r}"], device, *fwd_ptrs, *dims))
+        res[f"fwd_{r}"] = dict(ms=ms, rel_err=float((o_ - want[0]).abs().max()) / scale["o"])
+        if head_dim > 64:
+            res[f"fwd_{r}"]["info"] = k2_fwd_wide_info(r, L, heads, head_dim)
+    if fused_fits and fa.fused_smem_bytes(*sq.shape[1:]) <= fa.MAX_BLOCK_SMEM:
+        ptrs = [t.data_ptr() for t in (sq, sk, sv, seg, out, cot, lse, dq_, dk_, dv_)]
+        ms = cuda_ms(lambda: fa._launch("fused backward", fns["bwd_fused"], device, *ptrs, *dims))
+        res["bwd_fused"] = dict(ms=ms, rel_err=bwd_err())
+        if head_dim > 64:
+            res["bwd_fused"]["info"] = k2_fused_bwd_info(L, heads, head_dim)
+    di_of = lambda: (cot * out).sum(-1).transpose(1, 2).contiguous()  # noqa: E731
+    di = di_of()
+    di_ms = cuda_ms(di_of)
+    common = [t.data_ptr() for t in (sq, sk, sv, seg, cot, lse, di)]
+    dkv_ms = cuda_ms(lambda: fa._launch(
+        "dK/dV", fns["bwd_dkv"], device, *common, dk_.data_ptr(), dv_.data_ptr(), *dims))
+    dq_ms = cuda_ms(lambda: fa._launch("dQ", fns["bwd_dq"], device, *common, dq_.data_ptr(), *dims))
+    res["bwd_long"] = dict(ms=di_ms + dkv_ms + dq_ms, di_ms=di_ms, dkv_ms=dkv_ms, dq_ms=dq_ms,
+                           rel_err=bwd_err(),
+                           info={kn: k2_long_info(kn, head_dim) for kn in ("bwd_dkv", "bwd_dq")})
+    return res
+
+
+# phase k2_routes: (B, L, heads, head dim) above Dh 64 where the wide
+# routes' rules decide, on BST's rows (their first L positions); B * heads
+# * Dh near BST's rows with one head of Dh 128
+K2_ROUTE_SWEEP = (
+    *((1024, 101, 1, dh) for dh in (65, 72, 80, 96, 100, 112, 128, 144, 160)),
+    (512, 101, 2, 65), (512, 101, 2, 72), (512, 101, 2, 128), (512, 101, 1, 192),
+    (256, 101, 2, 256), (1024, 64, 1, 128), (1024, 33, 1, 128), (1024, 64, 2, 96),
+)
+
+
+def phase_k2_routes(device, bst_valid: torch.Tensor) -> list:
+    """Both routes of the forward and of the backward, alone, at the wide
+    shapes of ``K2_ROUTE_SWEEP`` with BST's masks, each against the plain
+    version (``k2_route_kernels``): which route each rule picks and which
+    one was faster. The rules are set from these times."""
+    out = []
+    for B, L, heads, head_dim in K2_ROUTE_SWEEP:
+        valid = bst_valid[:B, :L].contiguous()
+        g = torch.Generator(device=device).manual_seed(SEED)
+        q, k, v, cot = (torch.randn((B, L, heads, head_dim), generator=g, device=device)
+                        for _ in range(4))
+        qkv = [t.requires_grad_() for t in (q, k, v)]
+        o = fa.flash_mha_ref(*qkv, valid)
+        want = (o.detach(), *torch.autograd.grad(o, qkv, cot))
+        scale = {n: max(1.0, float(w.abs().max())) for n, w in zip(("o", "dq", "dk", "dv"), want)}
+        o = fa.flash_mha(*qkv, valid)
+        routes = k2_route_kernels(device, o.grad_fn.saved_tensors, cot, want, scale)
+        name = f"b{B}_L{L}_H{heads}_Dh{head_dim}"
+        k2_check_routes(name, routes, head_dim)
+        row = dict(case=name, fwd_smem_bytes=fa.fwd_smem_bytes(L, heads, head_dim),
+                   **{kn: dict(ms=r["ms"], rel_err=r["rel_err"]) for kn, r in routes.items()})
+        for d, rule in (("fwd", fa.fwd_route), ("bwd", fa.bwd_route)):
+            times = {r: routes[f"{d}_{r}"]["ms"] for r in ("fused", "long") if f"{d}_{r}" in routes}
+            row[f"{d}_picked"] = rule(L, heads, head_dim)
+            row[f"{d}_faster"] = min(times, key=times.get)
+        out.append(row)
+        del o, q, k, v, cot, qkv, want
+    emit("k2_routes", cases=out)
+    return out
 
 
 def phase_train(device) -> int:
@@ -1313,11 +1419,11 @@ def phase_bst_train(device, train, test) -> dict:
 def phase_bst_dh128(device, train) -> dict:
     """BST on ``bst_amazon_b1024_T100``'s data with item_dim = cat_dim = 64
     and one head, so Dh 128: BST_DH128_STEPS Trainer steps with flash
-    attention (K2's Dh > 64 kernels: the fused forward, and at L 101 the
-    long backward's dK/dV and dQ), then as many from the same init with
-    plain attention; the losses must agree."""
+    attention (K2's Dh > 64 kernels: at L 101 the long forward, whose block
+    beats the fused one's there, and the fused backward), then as many from
+    the same init with plain attention; the losses must agree."""
     L = BST_T + 1
-    check(fa.fwd_route(L, 1, 128) == "fused" and fa.bwd_route(L, 1, 128) == "long",
+    check(fa.fwd_route(L, 1, 128) == "long" and fa.bwd_route(L, 1, 128) == "fused",
           "BST at Dh 128: unexpected K2 routes")
     model = BST(item_vocab=BST_ITEMS, cat_vocab=BST_CATS, **BST_DH128, device=device)
     init_model(model, seed=SEED)
@@ -1344,8 +1450,8 @@ def phase_bst_dh128(device, train) -> dict:
     flash, plain = runs["flash"], runs["plain"]
     diff = max(abs(a - b) for a, b in zip(flash["losses"], plain["losses"]))
     fwd = 2 * BST_DH128_STEPS  # two blocks
-    want = dict(k1=4 * BST_DH128_STEPS, fwd=fwd, fwd_fused=fwd, fwd_long=0, bwd=0,
-                bwd_dkv=fwd, bwd_dq=fwd)
+    want = dict(k1=4 * BST_DH128_STEPS, fwd=fwd, fwd_fused=0, fwd_long=fwd, bwd=fwd,
+                bwd_dkv=0, bwd_dq=0)
     emit("bst_dh128", batch=BST_BATCH, history=BST_T, heads=1, head_dim=128, **BST_DH128,
          flash=flash, plain=plain, flash_vs_plain_max_loss_diff=diff,
          loss_tolerance=BST_PATHS_LOSS_TOL, expected_launches=want)
@@ -3844,9 +3950,10 @@ def main() -> int:
     if sys.argv[1:] == ["--k2"]:
         smi = phase_device()
         phase_build()
-        for case, valid, heads, head_dim, _, _ in k2_shapes(device, without_negatives(
-                sequence_data()[0])).values():
+        shapes = k2_shapes(device, without_negatives(sequence_data()[0]))
+        for case, valid, heads, head_dim, _, _ in shapes.values():
             phase_k2(device, case, valid, heads, head_dim)
+        phase_k2_routes(device, shapes["bst"][1])
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--dist"]:
@@ -3879,6 +3986,7 @@ def main() -> int:
         k2[key] = phase_k2(device, case, valid, heads, head_dim)
         took = (k2[key]["fwd_route"], k2[key]["route"])
         check(took == (fwd_route, bwd_route), f"K2 {case} took the {took} routes")
+    phase_k2_routes(device, k2_cases["bst"][1])
     dlrm_k1 = phase_train(device)
     phase_card_cpu(device)
     bst_launches = phase_bst_train(device, bst_train, bst_test)
@@ -4024,9 +4132,9 @@ def main() -> int:
                     "library_ms": (k2[key]["library_fwd_ms"] if fwd
                                    else k2[key]["library_bwd_ms"]),
                     **k2[key]["kernel_info"].get(kernel, {}),
-                    # where the forward is fused: the long one on the same inputs
-                    **({"fwd_long_route": k2[key]["fwd_long_route"]}
-                       if fwd and k2[key]["fwd_long_route"] else {}),
+                    # the other route of the same direction on the same inputs
+                    **{rk: r for rk, r in k2[key]["other_routes"].items()
+                       if r and rk.startswith("fwd" if fwd else "bwd")},
                 } for key in K2_WIDE_CASES if k2[key][route_key] == route},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

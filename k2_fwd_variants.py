@@ -98,26 +98,34 @@ CASES = (("r5_dh128", "fwd_long"), ("dh256", "fwd_long"), ("bst_dh128", "fwd_lon
          ("bst_dh128", "fwd_fused"), ("bst_dh72", "fwd_fused"))
 
 
-def build(name: str, replacements: list) -> tuple[Path, dict]:
-    """The variant's library and nvcc's registers and spill bytes of its
-    wide forward kernels."""
-    src = OUT / name
+def patched_build(source: str, name: str, replacements: list, out: Path) -> tuple[Path, str]:
+    """``csrc/<source>.cu`` with each (old, new) replaced once it is found,
+    built with the port's flags and ``-Xptxas -v`` into ``out/<name>/``:
+    the library and nvcc's report."""
+    src = out / name
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, src)
-    cu = src / "flash_attention.cu"
+    cu = src / f"{source}.cu"
     text = cu.read_text()
     for old, new in replacements:
         if old not in text:
             raise RuntimeError(f"{name}: no match for {old!r}")
         text = text.replace(old, new)
     cu.write_text(text)
-    so = src / "libflash_attention.so"
+    so = src / f"lib{source}.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
                            str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    return so, proc.stderr
+
+
+def build(name: str, replacements: list) -> tuple[Path, dict]:
+    """The variant's library and nvcc's registers and spill bytes of its
+    wide forward kernels."""
+    so, report = patched_build("flash_attention", name, replacements, OUT)
     info, kernel = {}, None
-    for line in proc.stderr.splitlines():
+    for line in report.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(wide_long|fused)_kernelILi(?:64ELb0ELi)?([24])E", line)
             kernel = f"{m[1]}_nc{m[2]}" if m else None

@@ -15,9 +15,10 @@
 // [B, H, L].
 //
 // Two routes; ops/flash_attention.py::bwd_route picks one from (L, H, Dh):
-// * fused (L <= 128 and fused_smem_bytes(L, H, Dh) <= 227 KB; BST's
-//   B1024 L101 H4 Dh9 takes it): one block per batch row b replaces both TPU
-//   kernels. It computes di itself, and for each head S, P, dP and dS once.
+// * fused (L <= 128 and fused_smem_bytes(L, H, Dh) <= 227 KB, which every
+//   Dh > 64 meets; BST's B1024 L101 H4 Dh9 takes it): one block per batch
+//   row b (above Dh 64, per batch row and head) replaces both TPU kernels.
+//   It computes di itself, and for each head S, P, dP and dS once.
 // * long (any other shape, e.g. the B128 L1001 probes): a dK/dV kernel that
 //   owns 64 keys and streams the queries, and a dQ kernel that owns 64
 //   queries and streams the keys, as the two TPU kernels do; di comes from
@@ -64,10 +65,39 @@
 // 6. Head dims above 64 (flash_mma.cuh, "Head dims"): a warp's own rows and
 //    its dK, dV accumulators at the whole Dh would not fit its registers, nor
 //    the long tiles shared memory, so a wide Dh runs in chunks of 64 columns.
-//    The fused route keeps its block: per head, the key side makes dK and dV
-//    a chunk at a time, S^T and dP^T computed again over every column for
-//    each chunk and dS^T kept from the first, and the query side dQ a chunk
-//    at a time from dS^T. The long route ("wide long route" below) gives a
+//    The wide fused kernel ("wide fused route" below) replaces, at L <= 128,
+//    both TPU kernels. Its bound on an H100 (chip_smoke.py's k2_bounds, the
+//    `bwd` row: q, k, v, o, dO, dq, dk, dv, lse, seg once at 3.35 TB/s):
+//    0.071 ms at BST's rows b1024 L101 with one head of Dh 72, 0.127 ms at
+//    Dh 128 and at b256 L101 H2 Dh256, each set by bytes (the 3xTF32
+//    products of the kept pairs take less). The chunked kernel before it
+//    had two faults, and the design answers each:
+//    - It computed S^T and dP^T again over every column for each 64-column
+//      chunk of dK and dV: 7 L^2 Dh products at two chunks where 5 do. Now
+//      a warp adds S^T and dP^T of its 16 keys against every query up over
+//      the whole Dh, chunk by chunk, keeps them in registers (128 floats a
+//      lane: L <= 128), turns them into P^T and dS^T in place, and makes
+//      dV, dK and (from dS^T in shared memory) dQ one chunk at a time.
+//    - Its block held the whole [L, H, Dh] spans of q, k, v and dO, so its
+//      shared memory grew with Dh: 166 KB at H 1, Dh 72 and L 101, and past
+//      227 KB from Dh 113, where the route went long (1.6x the pairs at L
+//      101: 64-row tiles, and S and dP in each of two kernels). Now a block
+//      is one (batch row, head) and streams the 64-column chunks of q, k, v
+//      and dO through a ring of unpadded swizzled [Lp, 64] slots (Lp: L
+//      rounded up to 16) with copies in flight; its shared memory follows L
+//      alone (220 KB at L 101, 196 KB at 128: one block an SM), so the
+//      fused route takes every Dh at L <= 128.
+//    Its 14-16 warps (two per 16 rows, at most 128 registers) split each
+//    pass's tiles or output columns. Measured on an NVIDIA H100 80GB HBM3
+//    at 700 W (chip_smoke.py --k2): 0.59 ms
+//    at Dh 128 (the long pair on the same inputs 1.20, SDPA's backward
+//    0.93), 0.47-0.48 at Dh 72 (the chunked kernel 0.62-0.63), 0.57-0.58
+//    at Dh 256 (long pair 1.55), 15-22% of its bounds; 128 registers, no
+//    local memory. k2_bwd_variants.py's diagnostic builds split the time at
+//    Dh 128 into the sums of S^T and dP^T (~0.19 ms), dV, dK and dQ (~0.27)
+//    and the copies, barriers, di and lists around them (~0.17), which the
+//    products do not hide.
+//    The long route ("wide long route" below) gives a
 //    block 64 rows and a group of up to 4 chunks (256 columns) of their
 //    outputs, and computes S and dP once per streamed tile over the whole Dh
 //    (the chunked kernels before it did so once per output chunk: 2x the
@@ -109,9 +139,10 @@ constexpr int kLongMinBlocksNarrow = 5;
 // transposed A reads of one warp hit 32 different banks.
 __host__ __device__ constexpr int fused_lds(int L) { return (L + 15) / 16 * 16 + 8; }
 
-// q, k, v, dO spans, dS^T [L][fused_lds], lse and di [H][L], seg [L].
-// Mirrored by ops/flash_attention.py.
-int64_t fused_smem_bytes(int L, int H, int Dh) {
+// q, k, v, dO spans, dS^T [L][fused_lds], lse and di [H][L], seg [L]; above
+// Dh 64 the wide fused block's (wide_fused_smem_bytes, a function of L
+// alone). Mirrored by ops/flash_attention.py.
+int64_t narrow_fused_smem_bytes(int L, int H, int Dh) {
   return 4 * (4LL * fused_span(L * H * Dh) + (int64_t)L * fused_lds(L) + 2LL * H * L + L);
 }
 
@@ -175,18 +206,6 @@ __device__ __forceinline__ void head_products(const Own<DP>& own, const View& y,
       s.add(own.x[kk].get(), by);
       dp.add(own.y[kk].get(), bw);
     }
-  }
-}
-
-// Wide head dims: s += X Y^T and dp += Z W^T over ng groups of 8 columns,
-// X and Z the warp's own 16 rows from r0 read from shared memory as A
-// fragments, Y and W the 8 rows at j0 (B).
-__device__ __forceinline__ void wide_products(const View& x, const View& z, const View& y,
-                                              const View& w, int r0, int j0, int ng, Lane l,
-                                              Acc3& s, Acc3& dp) {
-  for (int kk = 0; kk < ng; ++kk) {
-    s.add(load_a(x, r0, 8 * kk, l), load_bt(y, j0, 8 * kk, l));
-    dp.add(load_a(z, r0, 8 * kk, l), load_bt(w, j0, 8 * kk, l));
   }
 }
 
@@ -284,11 +303,8 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out, int64_t base,
 // heads one after the other. Per head: each warp takes 16 keys and streams
 // the queries in steps of 8 (dK, dV, and dS^T into shared memory), then,
 // after a barrier, 16 queries, streaming dS^T and K in steps of 8 keys (dQ).
-// kWide (Dh > 64, DP = kC): the key side makes dK and dV a chunk of kC
-// columns at a time, S^T and dP^T over every column from shared memory
-// again for each (dS^T is kept from the first); the query side makes dQ a
-// chunk at a time from the kept dS^T.
-template <int DP, bool kTail4, bool kWide = false>
+// Dh <= 64; a wider head takes the wide fused route below.
+template <int DP, bool kTail4>
 __global__ void __launch_bounds__(kFusedMaxL / 16 * 32, DP <= 16 ? 2 : 1)
 flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const int* __restrict__ seg,
@@ -341,79 +357,6 @@ flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Lane l = lane();
   const int r0 = 16 * (tid >> 5);
   const float c2 = scale * kLog2e;
-  if constexpr (kWide) {
-    RowSeg own;
-    own.set(seg_s, r0, L, l);
-    const int ng = (Dh + 7) / 8;
-    for (int h = 0; h < H; ++h) {
-      const View qv{qs + h * Dh, HD, L, Dh}, kv{ks + h * Dh, HD, L, Dh};
-      const View vv{vs + h * Dh, HD, L, Dh}, dov{dos + h * Dh, HD, L, Dh};
-      const int64_t obase = base + (int64_t)h * Dh;
-      for (int c0 = 0; c0 < Dh; c0 += kC) {  // the warp's keys, a chunk at a time
-        const int wc = min(kC, Dh - c0), nw = (wc + 7) / 8;
-        const View qc{qs + h * Dh + c0, HD, L, wc}, doc{dos + h * Dh + c0, HD, L, wc};
-        Acc<DP> dka, dva;
-        zero<DP>(dka);
-        zero<DP>(dva);
-        for (int j0 = 0; j0 < L; j0 += 8) {
-          const Cols c = cols(own, seg_s, L, j0, l);
-          float ds[4] = {0.f, 0.f, 0.f, 0.f};
-          if (c.live) {
-            Acc3 s, dp;
-            wide_products(kv, vv, qv, dov, r0, j0, ng, l, s, dp);
-            float p[4], ss[4], dps[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              ss[e] = s.sum(e);
-              dps[e] = dp.sum(e);
-            }
-            key_side_probs(own, c, ss, dps, lse_s + h * L, di_s + h * L, L, j0, c2, l, p, ds);
-            const FragA pa = acc_as_a(p), da = acc_as_a(ds);
-#pragma unroll
-            for (int nn = 0; nn < DP / 8; ++nn) {
-              if (nn >= nw) break;
-              mma3(dva[nn], pa, load_b_acc(doc, j0, 8 * nn, l));
-              mma3(dka[nn], da, load_b_acc(qc, j0, 8 * nn, l));
-            }
-          }
-          if (c0 == 0)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int row = r0 + l.g + 8 * (e >> 1), j = j0 + 2 * l.t + (e & 1);
-              if (row < L && j < L) dst[row * lds + j] = ds[e];
-            }
-        }
-        store_acc<DP>(dk, obase + c0, HD, r0, L, wc, dka, scale, l);
-        store_acc<DP>(dv, obase + c0, HD, r0, L, wc, dva, 1.f, l);
-      }
-      __syncthreads();
-      const View dsv{dst, lds, L, L};  // (key, query)
-      const int qseg0 = seg_s[min(r0 + l.g, L - 1)], qseg1 = seg_s[min(r0 + l.g + 8, L - 1)];
-      for (int c0 = 0; c0 < Dh; c0 += kC) {  // the warp's queries, a chunk at a time
-        const int wc = min(kC, Dh - c0), nw = (wc + 7) / 8;
-        const View kc{ks + h * Dh + c0, HD, L, wc};
-        Acc<DP> dqa;
-        zero<DP>(dqa);
-        for (int k0 = 0; k0 < L; k0 += 8) {
-          bool any = false;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int j = k0 + l.t + 4 * i;
-            const int kseg = seg_s[min(j, L - 1)];
-            any |= j < L && (kseg == qseg0 || kseg == qseg1);
-          }
-          if (!__any_sync(0xffffffffu, any)) continue;
-          const FragA a = load_at(dsv, k0, r0, l);
-#pragma unroll
-          for (int nn = 0; nn < DP / 8; ++nn)
-            if (nn < nw) mma3(dqa[nn], a, load_b(kc, k0, 8 * nn, l));
-        }
-        store_acc<DP>(dq, obase + c0, HD, r0, L, wc, dqa, scale, l);
-      }
-      __syncthreads();  // before the next head's dS^T
-    }
-    return;
-  }
   for (int h = 0; h < H; ++h) {
     const View qv{qs + h * Dh, HD, L, Dh}, kv{ks + h * Dh, HD, L, Dh};
     const View vv{vs + h * Dh, HD, L, Dh}, dov{dos + h * Dh, HD, L, Dh};
@@ -459,6 +402,313 @@ flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
       store_acc<DP>(dq, obase, HD, r0, L, Dh, dqa, scale, l);
     }
     __syncthreads();  // before the next head's dS^T
+  }
+}
+
+// ------------------------------------------------------------ wide fused route
+// Dh > 64 and L <= kFusedMaxL: one block per (batch row b, head h), two warps
+// per 16 rows (Lp: L rounded up to 16), a pair. The pair of rows r0 .. r0 +
+// 15 owns them as keys (S^T, dP^T, dV, dK) and as queries (dQ).
+// * Pass S, per chunk d (Q_d, K_d): S^T = K Q^T of the pair's keys against
+//   every query, summed over the whole Dh; the pair splits the tiles of 8
+//   queries. Then P^T into shared memory [Lp][lds] (the dS^T buffer).
+// * Pass P, per chunk d (dO_d, V_d): dP^T = V dO^T, split as S^T; dV_d =
+//   P^T dO_d, each warp of the pair 32 of the chunk's columns over every
+//   tile. Then dS^T = P^T (dP^T - di) in place of P^T; di = rowsum(dO O)
+//   comes from the block's first lines, 16 lanes a row, all loads at once.
+// * Pass B, per chunk c (Q_c, K_c): dK_c = scale dS^T Q_c and dQ_c = scale
+//   dS K_c (A read from dS^T by rows, or by columns), 32 columns a warp.
+// So S and dP are computed once per (b, h): 5 L^2 Dh products. A warp keeps
+// 32 floats of sums (8 tiles of its pair's 16), so a thread takes at most
+// 128 registers and a block up to 16 warps.
+//
+// A pair lists the tiles of 8 queries (pass B, of 8 keys: the same numbers;
+// the mask is symmetric) where its rows see a pair, 4 bits a tile number in
+// `list`; warp `half` of the pair takes the tiles k % 2 == half (`mine`). The
+// sums of S^T and dP^T run over `mine` in groups of 4 tiles, one branch a
+// group (a tile there is one chain of three products; a branch per tile runs
+// each chain alone, flash_attention.cu, "wide head dims"), the last group
+// padded with the pair's first tile, whose sums no one reads. The outputs
+// (4 chains a tile) loop over `list`, one tile an iteration.
+//
+// Shared memory, a function of L alone (wide_fused_smem_bytes): a ring of R
+// slots, each one swizzled [Lp, 64] chunk tile (R = 6, 4 at Lp 128 where 6
+// do not fit), P^T then dS^T [Lp][lds] (zero where no listed tile writes),
+// lse * log2 e, di and seg [Lp]. Copies, in the order the steps take them:
+// Q_d, K_d for every chunk, then dO_d, V_d, then Q_c, K_c; copy i goes to
+// slot i % R. Each step takes two; it waits for them, then at one barrier,
+// which also tells that every warp is done with the steps before and their
+// slots, issues copies up to R past the last one read: R - 2 stay in flight
+// under each step's products.
+// Mirrored and simulated over Dh 65-599 and L 1-128 by
+// tests/test_torch_flash_attention.py::test_wide_fused_bwd_ring_schedule.
+constexpr int kFusedTiles = kFusedMaxL / 8;  // tiles of 8 rows a fused block holds
+constexpr int kHalfTiles = kFusedTiles / 2;  // a warp's share of its pair's tiles
+constexpr int kWideFusedSlots = 6;
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// P^T's and dS^T's row stride: 4 mod 16, so that dQ's A reads (rows 2t and
+// 2t + 1, columns g and g + 8) hit 32 banks.
+__host__ __device__ constexpr int wide_fused_lds(int L) { return round16(L) + 4; }
+
+// Floats of a wide fused block besides its ring: dS^T, lse2, di and seg.
+__host__ __device__ constexpr int64_t wide_fused_rest(int L) {
+  return (int64_t)round16(L) * wide_fused_lds(L) + 3LL * round16(L);
+}
+
+// Ring slots: kWideFusedSlots, or as many as fit kMaxSmem (4 at Lp 128).
+__host__ __device__ constexpr int wide_fused_slots(int L) {
+  const int64_t fit = (kMaxSmem / 4 - wide_fused_rest(L)) / ((int64_t)round16(L) * kC);
+  return fit < kWideFusedSlots ? (int)fit : kWideFusedSlots;
+}
+
+// Mirrored by ops/flash_attention.py::fused_smem_bytes above Dh 64.
+__host__ __device__ constexpr int64_t wide_fused_smem_bytes(int L) {
+  return 4 * (wide_fused_rest(L) + (int64_t)wide_fused_slots(L) * round16(L) * kC);
+}
+
+// The first row of the k-th tile of a list (4 bits a tile number).
+__device__ __forceinline__ int listed(uint64_t list, int k) {
+  return 8 * (int)((list >> (4 * k)) & 15);
+}
+
+// x, as a value the compiler cannot see through: addresses computed from it
+// are computed where they are used, not once for a whole loop and kept.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// acc[k] += X Y_k^T over one chunk of ks steps of 8 columns: X the pair's 16
+// rows from r0 of a swizzled slot (A fragments), Y_k the 8 rows of the k-th
+// tile of `mine` (B fragments), for the groups of 4 that hold its first nm.
+// Rows r0 + g, r0 + g + 8 and every tile's row g swizzle by 4 g.
+__device__ __forceinline__ void listed_score_products(const float* x, const float* y, int r0,
+                                                      int ks, int nm, uint64_t mine, Lane l,
+                                                      float (&acc)[kHalfTiles][4]) {
+  mine = opaque(mine);
+  const int sw = 4 * l.g, ra = (r0 + l.g) * kC;
+#pragma unroll 2
+  for (int kk = 0; kk < ks; ++kk) {
+    const int c = (8 * kk + l.t) ^ sw, c4 = c ^ 4;
+    const FragA a = split_a(x[ra + c], x[ra + 8 * kC + c], x[ra + c4], x[ra + 8 * kC + c4]);
+#pragma unroll
+    for (int gq = 0; gq < kHalfTiles / 4; ++gq) {
+      if (4 * gq < nm) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* y0 = y + (listed(mine, 4 * gq + i) + l.g) * kC;
+          mma3(acc[4 * gq + i], a, split_b(y0[c], y0[c4]));
+        }
+      }
+    }
+  }
+}
+
+// acc += A X over the first nl tiles of list (their 8 rows the sum's
+// index), one tile an iteration: X a swizzled slot's rows of the tile,
+// columns c0 + 8 nn + g (nn < NN), in load_b_acc's order (rows 2 t and 2 t +
+// 1 swizzle by 8 t and 8 t + 4); A in the same order from d [.][lds]: its
+// rows r0 + g and r0 + g + 8 at the tile's columns 2 t and 2 t + 1 (kRows),
+// or the tile's rows 2 t and 2 t + 1 at columns r0 + g and r0 + g + 8.
+template <int NN, bool kRows>
+__device__ __forceinline__ void listed_out_products(const float* d, int lds, int r0,
+                                                    const float* x, int c0, int nl,
+                                                    uint64_t list, Lane l, float (&acc)[NN][4]) {
+  list = opaque(list);
+  const float* x0 = x + 2 * l.t * kC + l.g;
+  const float* x1 = x + (2 * l.t + 1) * kC + (l.g ^ 4);
+#pragma unroll 2
+  for (int kq = 0; kq < nl; ++kq) {
+    const int j0 = listed(list, kq);
+    FragA f;
+    if (kRows) {
+      const float* a = d + (r0 + l.g) * lds + j0 + 2 * l.t;
+      const float2 u = *reinterpret_cast<const float2*>(a);
+      const float2 w = *reinterpret_cast<const float2*>(a + 8 * lds);
+      f = split_a(u.x, w.x, u.y, w.y);
+    } else {
+      const float* a = d + (j0 + 2 * l.t) * lds + r0 + l.g;
+      f = split_a(a[0], a[8], a[lds], a[lds + 8]);
+    }
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) {
+      const int cc = j0 * kC + ((c0 + 8 * nn) ^ (8 * l.t));
+      mma3(acc[nn], f, split_b(x0[cc], x1[cc]));
+    }
+  }
+}
+
+// The warp's 32 columns from c0 (those below the chunk's width wc) of one
+// output chunk, times mul, into out at base (the chunk's first column).
+template <bool kRows>
+__device__ __forceinline__ void wide_fused_out(const float* d, int lds, int r0, const float* x,
+                                               int c0, int nl, uint64_t list,
+                                               float* __restrict__ out, int64_t base, int HD,
+                                               int L, int wc, float mul, Lane l) {
+  if (c0 >= wc) return;
+  if (wc - c0 <= 16) {
+    float acc[2][4] = {};
+    listed_out_products<2, kRows>(d, lds, r0, x, c0, nl, list, l, acc);
+    store_acc<16>(out, base + c0, HD, r0, L, wc - c0, acc, mul, l);
+  } else {
+    float acc[4][4] = {};
+    listed_out_products<4, kRows>(d, lds, r0, x, c0, nl, list, l, acc);
+    store_acc<32>(out, base + c0, HD, r0, L, wc - c0, acc, mul, l);
+  }
+}
+
+__global__ void __launch_bounds__(2 * kFusedMaxL / 16 * 32, 1)
+flash_bwd_fused_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int* __restrict__ seg,
+                            const float* __restrict__ o, const float* __restrict__ dout,
+                            const float* __restrict__ lse, float* __restrict__ dq,
+                            float* __restrict__ dk, float* __restrict__ dv, int L, int H,
+                            int Dh, float scale, bool vec) {
+  extern __shared__ float4 smem[];
+  const int Lp = round16(L), R = wide_fused_slots(L), lds = wide_fused_lds(L);
+  const int tile = Lp * kC;  // floats of a slot
+  float* slots = reinterpret_cast<float*>(smem);
+  float* dst = slots + R * tile;  // P^T, then dS^T [Lp][lds]: (key, query)
+  float* lse2 = dst + Lp * lds;   // [Lp], times log2 e
+  float* di_s = lse2 + Lp;        // [Lp]
+  int* seg_s = reinterpret_cast<int*>(di_s + Lp);
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H, HD = H * Dh;
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid >> 5, half = warp & 1;
+  const int r0 = 16 * (warp >> 1), c0 = 32 * half;  // the pair's rows; the warp's output columns
+  const int64_t base = (int64_t)b * L * HD + (int64_t)h * Dh;  // (b, 0, h, 0)
+  const int64_t rows = ((int64_t)b * H + h) * L;               // (b, h, 0) of [B, H, L]
+  const int nd = chunks(Dh), total = 6 * nd;
+  const Lane l = lane();
+
+  int issued = 0;
+  auto issue = [&](int upto) {  // copy i: Q_d, K_d (pass S); dO_d, V_d (P); Q_c, K_c (B)
+    for (; issued <= upto && issued < total; ++issued) {
+      const int pass = issued / (2 * nd), d = (issued >> 1) - pass * nd;
+      const float* x = pass == 1 ? (issued & 1 ? v : dout) : (issued & 1 ? k : q);
+      // nthreads is a multiple of 64: whole rows of 4-byte copies too
+      load_swz_async(slots + (issued % R) * tile, x, base + d * kC, 0, L, HD,
+                     min(kC, Dh - d * kC), vec, tid, nthreads, Lp);
+      cp_async_commit();
+    }
+  };
+  issue(R - 1);
+  for (int e = tid; e < Lp * lds; e += nthreads) dst[e] = 0.f;
+  for (int e = tid; e < Lp; e += nthreads) {
+    lse2[e] = e < L ? lse[rows + e] * kLog2e : 0.f;
+    seg_s[e] = e < L ? seg[(int64_t)b * L + e] : 0;
+  }
+  {  // di = rowsum(dO * O): 16 lanes a row, 4 rows each (Lp / 4 groups), all loads in flight
+    const int sub = tid & 15, group = tid >> 4;
+    float sum[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = group + r * (Lp >> 2);
+      const float* dr = dout + base + (int64_t)i * HD;
+      const float* orow = o + base + (int64_t)i * HD;
+      sum[r] = 0.f;
+      if (i < L) {
+        if (vec) {
+#pragma unroll 2
+          for (int c = 4 * sub; c < Dh; c += 64) {
+            const float4 x = *reinterpret_cast<const float4*>(dr + c);
+            const float4 y = *reinterpret_cast<const float4*>(orow + c);
+            sum[r] += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+          }
+        } else {
+#pragma unroll 4
+          for (int c = sub; c < Dh; c += 16) sum[r] = fmaf(dr[c], orow[c], sum[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+      if (sub == 0) di_s[group + r * (Lp >> 2)] = sum[r];
+    }
+  }
+  __syncthreads();
+
+  RowSeg own;
+  own.set(seg_s, r0, L, l);
+  uint32_t live = 0;  // the pair's tiles with a visible pair (its own rows' tile at least)
+#pragma unroll
+  for (int jt = 0; jt < kFusedTiles; ++jt)
+    if (8 * jt < L && cols(own, seg_s, L, 8 * jt, l).live) live |= 1u << jt;
+  const int nl = __popc(live);
+  uint64_t list = 0, mine = 0;
+  int nm = 0;
+  {
+    const uint64_t first = __ffs(live) - 1;
+    for (int kq = 0; kq < kFusedTiles; ++kq) list |= first << (4 * kq);
+    uint32_t m = live;
+    for (int kq = 0; kq < nl; ++kq, m &= m - 1) {
+      const uint64_t jt = __ffs(m) - 1;
+      list = (list & ~(15ull << (4 * kq))) | jt << (4 * kq);
+      if ((kq & 1) == half) mine |= jt << (4 * nm++);
+    }
+    for (int kq = nm; kq < kHalfTiles; ++kq) mine |= first << (4 * kq);
+  }
+
+  int last = -1;  // the last copy the steps so far read
+  auto step = [&]() {  // a step that reads two copies: returns the first one's index
+    cp_async_wait_n(issued - 1 - (last + 2));
+    __syncthreads();
+    issue(last + R);
+    last += 2;
+    return last - 1;
+  };
+  auto slot = [&](int i) { return slots + i % R * tile; };
+  const float c2 = scale * kLog2e;
+  {  // pass S
+    float s[kHalfTiles][4] = {};
+    for (int d = 0; d < nd; ++d) {
+      const int u = step();  // Q_d, K_d
+      listed_score_products(slot(u + 1), slot(u), r0, (min(kC, Dh - d * kC) + 7) / 8, nm, mine,
+                            l, s);
+    }
+#pragma unroll
+    for (int kq = 0; kq < kHalfTiles; ++kq) {
+      if (kq < nm) {
+        const int j0 = listed(mine, kq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, j = j0 + 2 * l.t + (e & 1);
+          const bool on = own.ok[r] && j < L && seg_s[j] == own.seg[r];
+          dst[(r0 + l.g + 8 * r) * lds + j] = on ? exp2f(fmaf(s[kq][e], c2, -lse2[j])) : 0.f;
+        }
+      }
+    }
+  }
+  float dp[kHalfTiles][4] = {};
+  for (int d = 0; d < nd; ++d) {  // pass P
+    const int wd = min(kC, Dh - d * kC);
+    const int u = step();  // dO_d, V_d
+    listed_score_products(slot(u + 1), slot(u), r0, (wd + 7) / 8, nm, mine, l, dp);
+    wide_fused_out<true>(dst, lds, r0, slot(u), c0, nl, list, dv, base + d * kC, HD, L, wd, 1.f,
+                         l);
+  }
+  __syncthreads();  // every warp done with P^T in dV
+#pragma unroll
+  for (int kq = 0; kq < kHalfTiles; ++kq) {
+    if (kq < nm) {
+      const int j0 = listed(mine, kq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + 2 * l.t + (e & 1);
+        dst[(r0 + l.g + 8 * (e >> 1)) * lds + j] *= dp[kq][e] - di_s[j];  // P^T 0 where masked
+      }
+    }
+  }
+  for (int c = 0; c < nd; ++c) {  // pass B; the first step's barrier publishes dS^T
+    const int wc = min(kC, Dh - c * kC);
+    const int u = step();  // Q_c, K_c: dK = scale dS^T Q, then dQ = scale dS K
+    wide_fused_out<true>(dst, lds, r0, slot(u), c0, nl, list, dk, base + c * kC, HD, L, wc, scale,
+                         l);
+    wide_fused_out<false>(dst, lds, r0, slot(u + 1), c0, nl, list, dq, base + c * kC, HD, L, wc,
+                          scale, l);
   }
 }
 
@@ -1041,8 +1291,8 @@ struct Launch {
       const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
       const int threads = (a.L + 15) / 16 * 32;
       launch_kernel(flash_bwd_fused_kernel<DP, kTail4>, (unsigned)a.B, threads,
-                    fused_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v, a.seg, a.o, a.dout,
-                    a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
+                    narrow_fused_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v, a.seg, a.o,
+                    a.dout, a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
       return;
     }
     const bool vec = vec4 && a.Dh % 4 == 0;
@@ -1061,10 +1311,10 @@ struct Launch {
   static void run_wide(const Which& which, const Args& a, const cudaStream_t& s) {
     const bool vec4 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
     if (which == kFused) {
-      const bool vec = vec4 && ((int64_t)a.L * a.H * a.Dh) % 4 == 0;
-      launch_kernel(flash_bwd_fused_kernel<DP, false, true>, (unsigned)a.B,
-                    (a.L + 15) / 16 * 32, fused_smem_bytes(a.L, a.H, a.Dh), s, a.q, a.k, a.v,
-                    a.seg, a.o, a.dout, a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale, vec);
+      launch_kernel(flash_bwd_fused_wide_kernel, (unsigned)((int64_t)a.B * a.H),
+                    round16(a.L) / 16 * 64, wide_fused_smem_bytes(a.L), s, a.q, a.k, a.v, a.seg,
+                    a.o, a.dout, a.lse, a.dq, a.dk, a.dv, a.L, a.H, a.Dh, a.scale,
+                    vec4 && aligned16(a.o) && a.Dh % 4 == 0);
       return;
     }
     const dim3 grid((unsigned)((int64_t)a.B * ((a.L + kTile - 1) / kTile) * a.H),
@@ -1114,6 +1364,10 @@ struct Info {
                   out);
   }
 };
+
+int64_t fused_smem_bytes(int L, int H, int Dh) {
+  return Dh > kNarrowMaxDh ? wide_fused_smem_bytes(L) : narrow_fused_smem_bytes(L, H, Dh);
+}
 
 int dispatch(Which which, const Args& a, void* stream) {
   if (!shape_ok(a.B, a.L, a.H, a.Dh)) return (int)cudaErrorInvalidValue;
@@ -1201,6 +1455,15 @@ extern "C" int rtt_flash_attention_bwd_wide_groups(int Dh) {
 
 extern "C" long long rtt_flash_attention_bwd_wide_smem(int dkv) {
   return wide_bwd_smem_bytes(dkv != 0);
+}
+
+// Registers, local memory bytes a thread and blocks an SM (out[0..2]) of the
+// wide fused backward (Dh > 64, L <= 128) as its launch at [., L, H, Dh]
+// configures it (its threads and shared memory follow L alone).
+extern "C" int rtt_flash_attention_bwd_fused_wide_info(int L, int H, int Dh, int* out) {
+  if (Dh <= kNarrowMaxDh || L < 1 || L > kFusedMaxL || H < 1) return (int)cudaErrorInvalidValue;
+  kernel_info(flash_bwd_fused_wide_kernel, round16(L) / 16 * 64, wide_fused_smem_bytes(L), out);
+  return (int)cudaGetLastError();
 }
 
 // Registers, local memory bytes a thread and blocks an SM (out[0..2]) of the

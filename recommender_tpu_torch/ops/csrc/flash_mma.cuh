@@ -14,12 +14,13 @@
 // columns), whose accumulators a warp keeps in registers: the long
 // forward's and the long backward's blocks and the fused forward's warps
 // own such a group (flash_attention.cu, "wide head dims";
-// flash_attention_bwd.cu, "wide long route"). The long routes stream their
-// chunks through a ring of swizzled 64 x 64 tiles (swz, load_swz_async)
-// whose copies stay in flight under the products. The fused backward still
-// makes dK, dV and dQ kC columns at a time, S^T and dP^T computed again for
-// each chunk. Shared memory and registers do not grow with Dh: any Dh >= 1
-// runs.
+// flash_attention_bwd.cu, "wide long route"). The long routes and the fused
+// backward stream their chunks through a ring of swizzled 64-column tiles
+// (swz, load_swz_async) whose copies stay in flight under the products; the
+// fused backward computes S and dP once per (batch row, head), its sums in
+// registers and P^T, then dS^T, in shared memory (flash_attention_bwd.cu,
+// "wide fused route"). Shared memory and registers do not grow with Dh:
+// any Dh >= 1 runs.
 //
 // Layout of every tensor as the kernels see it: q, k, v, o and their
 // gradients f32 [B, L, H, Dh] (heads-last, contiguous); seg int32 [B, L];
@@ -352,17 +353,21 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   }
 }
 
-// A whole swizzled chunk tile by cp.async: columns [0, w) of rows [row0, row0
-// + n) of one head (base: the offset of (b, 0, h, d0)), zeros in every other
-// row and column. So the products read it without bounds: zeros add nothing.
-// 16 bytes a copy where vec (16 threads a row), else 4 (64 threads a row).
+// A whole swizzled chunk tile of `rows` rows (kTile, or the fused backward's
+// L rounded up to 16) by cp.async: columns [0, w) of rows [row0, row0 + n) of
+// one head (base: the offset of (b, 0, h, d0)), zeros in every other row and
+// column. So the products read it without bounds: zeros add nothing. 16
+// bytes a copy where vec (16 threads a row), else 4 (64 threads a row; the
+// block's threads a multiple of 64, or two calls of tid and tid + nthreads
+// out of 2 nthreads).
 __device__ __forceinline__ void load_swz_async(float* dst, const float* __restrict__ x,
                                                int64_t base, int row0, int n, int HD, int w,
-                                               bool vec, int tid, int nthreads) {
+                                               bool vec, int tid, int nthreads,
+                                               int rows = kTile) {
   const int per_row = vec ? kC / 4 : kC, c = (tid % per_row) * (vec ? 4 : 1);
   const int r0 = tid / per_row, step = nthreads / per_row;
   const float* src = x + base + (int64_t)(row0 + r0) * HD + c;
-  for (int r = r0; r < kTile; r += step, src += (int64_t)step * HD) {
+  for (int r = r0; r < rows; r += step, src += (int64_t)step * HD) {
     const bool in = r < n && c < w;
     if (vec)
       cp_async16_or_zero(dst + swz(r, c), in ? src : x, in);

@@ -9,7 +9,9 @@ two routes, which ``fwd_route`` picks from the shape:
 
 * ``"fused"``: one block per batch row holds q, k and v of all its heads
   and writes o and lse. It takes L up to ``FUSED_MAX_L`` where the block's
-  shared memory (``fwd_smem_bytes``) fits; BST's L 101, H 4, Dh 9 does;
+  shared memory (``fwd_smem_bytes``) fits; BST's L 101, H 4, Dh 9 does.
+  Above Dh 64 the route picks it only at Dh <= 128 where H * Dh is not a
+  multiple of 32 (``fwd_route``, from the card's times);
 * ``"long"``: a block owns 64 queries of one head and streams the keys in
   tiles of 64.
 
@@ -18,20 +20,22 @@ which ``bwd_route`` picks:
 
 * ``"fused"``: one launch computes ``di = rowsum(dO * O)``, dQ, dK and dV,
   one block per batch row holding all its heads, where its shared memory
-  (``fused_smem_bytes``) fits at L up to ``FUSED_MAX_L``;
+  (``fused_smem_bytes``) fits at L up to ``FUSED_MAX_L``; above Dh 64 one
+  block per batch row and head, at every L up to ``FUSED_MAX_L``, which
+  computes S and dP once over the whole Dh and streams the 64-column
+  chunks of q, k, v and dO through a ring of ``wide_fused_bwd_slots``
+  slots (its shared memory follows L alone);
 * ``"long"``: the wrapper computes ``di``, then a dK/dV kernel and a dQ
   kernel run, each streaming the other side's rows in tiles of 64.
 
 Both sets of kernels run on the tensor cores at f32 accuracy (3xTF32).
 Each file instantiates its kernels by head dim: Dh up to 64 padded to a
 multiple of 8, the rows a warp owns kept in registers; any wider Dh in
-chunks of 64 columns (``csrc/flash_mma.cuh``, "Head dims"), on both routes
-and with the same fused shared-memory counts, so the routes do not depend
-on the instantiation. Above Dh 64 the long forward's blocks, the fused
-forward's warps and the long backward's blocks own a group of output
-columns (``wide_fwd_groups``, ``wide_bwd_groups``), over which they
-compute the scores once; the long backward's blocks take a fixed shared
-memory (``wide_bwd_smem_bytes``).
+chunks of 64 columns (``csrc/flash_mma.cuh``, "Head dims"). Above Dh 64
+the long forward's blocks, the fused forward's warps and the long
+backward's blocks own a group of output columns (``wide_fwd_groups``,
+``wide_bwd_groups``), over which they compute the scores once; the long
+backward's blocks take a fixed shared memory (``wide_bwd_smem_bytes``).
 
 Semantics are the TPU kernel's ``SegmentIds(seg, seg)`` with
 ``seg = valid``: key j is visible to query i iff ``valid[b, i] ==
@@ -82,12 +86,42 @@ def fwd_smem_bytes(L: int, H: int, Dh: int) -> int:
     return 4 * (3 * _span(_round8(L), H, Dh) + H * L + _round8(L))
 
 
-def fused_smem_bytes(L: int, H: int, Dh: int) -> int:
-    """Shared memory of one fused-backward block (one batch row): the q, k,
-    v and dO spans; dS^T of one head [L, round16(L) + 8]; lse and di [H, L];
-    seg [L]. The same count as ``fused_smem_bytes`` in
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+# the most ring slots a wide fused-backward block takes
+WIDE_FUSED_BWD_MAX_SLOTS = 6
+
+
+def _wide_fused_rest(lp: int) -> int:
+    """Floats of a wide fused-backward block besides its ring: P^T, then
+    dS^T [lp, lp + 4]; lse, di and seg [lp]."""
+    return lp * (lp + 4) + 3 * lp
+
+
+def wide_fused_bwd_slots(L: int) -> int:
+    """Ring slots of the wide fused backward's block (Dh > 64), each one
+    swizzled [round16(L), 64] chunk tile: ``WIDE_FUSED_BWD_MAX_SLOTS``, or as
+    many as fit ``MAX_BLOCK_SMEM`` beside the rest of the block (4 at L
+    113-128). The same count as ``wide_fused_slots`` in
     ``csrc/flash_attention_bwd.cu``."""
-    lds = -(-L // 16) * 16 + 8
+    lp = _round16(L)
+    return min(WIDE_FUSED_BWD_MAX_SLOTS, (MAX_BLOCK_SMEM // 4 - _wide_fused_rest(lp)) // (lp * 64))
+
+
+def fused_smem_bytes(L: int, H: int, Dh: int) -> int:
+    """Shared memory of one fused-backward block. At Dh <= 64 (one batch
+    row): the q, k, v and dO spans; dS^T of one head [L, round16(L) + 8];
+    lse and di [H, L]; seg [L]. Above Dh 64 (one batch row and head), a
+    function of L alone: the ring's slots (``wide_fused_bwd_slots``), P^T
+    then dS^T [round16(L), round16(L) + 4], lse, di and seg [round16(L)].
+    The same
+    count as ``fused_smem_bytes`` in ``csrc/flash_attention_bwd.cu``."""
+    if Dh > 64:
+        lp = _round16(L)
+        return 4 * (_wide_fused_rest(lp) + wide_fused_bwd_slots(L) * lp * 64)
+    lds = _round16(L) + 8
     return 4 * (4 * _span(L, H, Dh) + L * lds + 2 * H * L + L)
 
 
@@ -138,15 +172,23 @@ def _route(L: int, smem: int) -> str:
 
 def fwd_route(L: int, H: int, Dh: int) -> str:
     """The forward's route: ``"fused"`` where one block holds a batch row
-    (L <= ``FUSED_MAX_L`` and ``fwd_smem_bytes`` within
-    ``MAX_BLOCK_SMEM``), else ``"long"``."""
+    (L <= ``FUSED_MAX_L`` and ``fwd_smem_bytes`` within ``MAX_BLOCK_SMEM``),
+    else ``"long"``. Above Dh 64 the fused kernel takes only Dh <= 128 (its
+    warps keep O on one group of 2 chunks) where the rows of its spans are
+    not a multiple of 32 floats apart (H * Dh % 32 != 0; where they are,
+    every B read of 8 rows falls in one bank): the long kernel was the
+    faster at every other shape ``chip_smoke.py``'s ``k2_routes`` timed on
+    the card, and the fused one at each of these (``PERF.md``)."""
+    if Dh > 64 and (Dh > 128 or H * Dh % 32 == 0):
+        return "long"
     return _route(L, fwd_smem_bytes(L, H, Dh))
 
 
 def bwd_route(L: int, H: int, Dh: int) -> str:
     """The backward's route: ``"fused"`` where one block holds a batch row
     (L <= ``FUSED_MAX_L`` and ``fused_smem_bytes`` within
-    ``MAX_BLOCK_SMEM``), else ``"long"``."""
+    ``MAX_BLOCK_SMEM``; above Dh 64 a block holds one head of a batch row
+    and every L <= ``FUSED_MAX_L`` fits), else ``"long"``."""
     return _route(L, fused_smem_bytes(L, H, Dh))
 
 

@@ -83,13 +83,14 @@ def _port_grads(q, k, v, valid, cot, device="cpu"):
 
 @pytest.mark.parametrize("B,L,H,Dh", [(2, 11, 4, 9), (3, 130, 2, 9), (2, 11, 2, 72),
                                      (1, 130, 1, 128), (2, 11, 1, 130), (2, 11, 1, 192),
-                                     (1, 11, 2, 256)])
+                                     (1, 11, 2, 256), (2, 101, 1, 128)])
 def test_ref_matches_jax_flash_interpret(pallas_interpret, B, L, H, Dh):
-    """L not a multiple of 128 (11, and 130 which spans two 128-blocks),
-    Dh 9 and the wide 72, 128, 130, 192 and 256 (which JAX pads to 256
-    lanes; 256 is the widest one column group takes), with an
+    """L not a multiple of 128 (11, 101, and 130 which spans two
+    128-blocks), Dh 9 and the wide 72, 128, 130, 192 and 256 (which JAX pads
+    to 256 lanes; 256 is the widest one column group takes), with an
     all-pad-history row: forward on valid rows, q/k/v gradients on every
-    row."""
+    row. (2, 101, 1, 128) is BST's L with one head of Dh 128, a shape the
+    wide fused backward takes."""
     import jax
     import jax.numpy as jnp
 
@@ -230,6 +231,9 @@ def test_cpu_path_launches_nothing():
         (128, 1, 64, "fused"),  # 202,496 bytes of shared memory
         (101, 4, 64, "long"),  # 4 heads of Dh 64 do not fit one block
         (128, 2, 40, "long"),
+        # above Dh 64 a block holds one head: fused at every L <= 128
+        *[(L, H, Dh, "fused" if L <= 128 else "long")
+          for Dh in (65, 72, 128, 256, 300) for L in (1, 101, 128, 129) for H in (1, 2)],
     ],
 )
 def test_bwd_route_is_a_function_of_the_shape(L, H, Dh, route):
@@ -249,6 +253,10 @@ def test_bwd_route_is_a_function_of_the_shape(L, H, Dh, route):
         (128, 3, 64, "long"),
         (101, 4, 64, "long"),  # 4 heads of Dh 64 do not fit one block
         (128, 2, 40, "fused"),  # long for the backward: the forward's block is smaller
+        # above Dh 64, fused only at Dh <= 128 with H * Dh % 32 != 0, where
+        # its block fits; 129 is past the fused block
+        *[(L, H, Dh, "fused" if Dh in (65, 72) and L <= 128 else "long")
+          for Dh in (65, 72, 128, 256, 300) for L in (1, 101, 128, 129) for H in (1, 2)],
     ],
 )
 def test_fwd_route_is_a_function_of_the_shape(L, H, Dh, route):
@@ -307,6 +315,104 @@ def test_fused_smem_bytes_at_bst_and_at_the_limit():
         fits = fa.fused_smem_bytes(L, H, Dh) <= fa.MAX_BLOCK_SMEM
         assert fa.bwd_route(L, H, Dh) == ("fused" if fits else "long")
     assert {fa.bwd_route(*d) for d in dims} == {"fused", "long"}
+
+
+def test_fwd_wide_route_rule():
+    """Above Dh 64 the forward is fused only at Dh <= 128 where H * Dh is not
+    a multiple of 32 and the block fits: BST's L 101 with one head of Dh 72
+    or 112 and two of Dh 65 or 72 fused; of Dh 96, 128, 144 or 160, or two
+    heads of 96 at L 64, long (the times of ``k2_routes`` on the card). At
+    Dh <= 64 only the block's size decides."""
+    for H, Dh in ((1, 65), (1, 72), (1, 80), (1, 100), (1, 112), (2, 65), (2, 72)):
+        assert fa.fwd_route(101, H, Dh) == "fused"
+    for L, H, Dh in ((101, 1, 96), (101, 1, 128), (101, 1, 144), (101, 1, 160), (64, 1, 128),
+                     (33, 1, 128), (64, 2, 96), (101, 2, 128), (101, 1, 192)):
+        assert fa.fwd_route(L, H, Dh) == "long"
+    for L in (1, 16, 64, 101, 128):
+        for H in (1, 2, 3):
+            for Dh in range(65, 300):
+                fits = fa.fwd_smem_bytes(L, H, Dh) <= fa.MAX_BLOCK_SMEM
+                fused = fits and Dh <= 128 and H * Dh % 32 != 0
+                assert fa.fwd_route(L, H, Dh) == ("fused" if fused else "long")
+    assert fa.fwd_route(128, 2, 64) == "fused"  # H * Dh % 32 == 0 is no reason below Dh 65
+    assert fa.fwd_route(101, 3, 72) == "long"  # 271,388 bytes: no fused block
+
+
+@pytest.mark.parametrize("L,slots,nbytes", [(1, 6, 26_048), (101, 6, 225_344), (112, 6, 225_344),
+                                            (113, 4, 200_192), (128, 4, 200_192)])
+def test_wide_fused_bwd_smem_bytes_do_not_grow_with_head_dim(L, slots, nbytes):
+    """Above Dh 64 a fused-backward block holds one (batch row, head): a ring
+    of [round16(L), 64] chunk slots (6, or 4 where 6 do not fit), P^T then
+    dS^T [round16(L), round16(L) + 4], and lse, di and seg [round16(L)]. Its
+    shared memory follows L alone: the same at BST's rows with Dh 72 and
+    128 and at every Dh to 600 and H to 4, within MAX_BLOCK_SMEM. Below Dh
+    65 the count is the per-batch-row one, which grows with Dh."""
+    lp = -(-L // 16) * 16
+    assert fa.wide_fused_bwd_slots(L) == slots
+    assert nbytes == 4 * (slots * lp * 64 + lp * (lp + 4) + 3 * lp) <= fa.MAX_BLOCK_SMEM
+    assert fa.fused_smem_bytes(L, 1, 72) == fa.fused_smem_bytes(L, 1, 128) == nbytes
+    assert {fa.fused_smem_bytes(L, H, Dh) for H in (1, 2, 4) for Dh in range(65, 600, 13)} == {nbytes}
+    assert fa.fused_smem_bytes(L, 1, 64) < fa.fused_smem_bytes(L, 4, 64)
+    if slots < fa.WIDE_FUSED_BWD_MAX_SLOTS:  # one slot more would not fit
+        assert nbytes + 4 * lp * 64 > fa.MAX_BLOCK_SMEM
+
+
+def _simulate_wide_fused_bwd_ring(Dh, L):
+    """Runs ``flash_bwd_fused_wide_kernel``'s schedule of copies and steps
+    (``csrc/flash_attention_bwd.cu``, "wide fused route") for one block and
+    checks it: copy i takes ring slot i % R (R = ``wide_fused_bwd_slots``)
+    only once every step that reads the slot's last copy has passed a
+    barrier; each step finds its two copies issued and waited for (the count
+    of pending groups it asks cp.async to leave is >= 0), in slots no later
+    copy has taken, holding the tensor and chunk it needs: per chunk d, pass
+    S (Q_d, K_d); then pass P (dO_d, V_d); then pass B (Q_c, K_c). Returns
+    the copies each step leaves in flight."""
+    R, nd = fa.wide_fused_bwd_slots(L), -(-Dh // 64)
+    passes = (("q", "k"), ("do", "v"), ("q", "k"))
+    plan = [[(t, d) for t in names] for names in passes for d in range(nd)]
+    copies = [c for need in plan for c in need]  # (tensor, chunk) of copy i, in order
+    total = len(copies)
+
+    def what(i):  # the kernel's issue(): its index arithmetic
+        p = i // (2 * nd)
+        return passes[p][i & 1], (i >> 1) - p * nd
+
+    assert total == 6 * nd and [what(i) for i in range(total)] == copies
+    slot, state = {}, dict(issued=0)
+
+    def issue(upto, last):
+        while state["issued"] <= upto and state["issued"] < total:
+            i = state["issued"]
+            assert slot.get(i % R, -1) <= last, (Dh, L, i)  # its last reader is done
+            slot[i % R] = i
+            state["issued"] += 1
+
+    last, in_flight = -1, []
+    issue(R - 1, last)
+    for need in plan:
+        pending = state["issued"] - 1 - (last + 2)
+        assert pending >= 0, (Dh, L, last)  # the step's last copy was issued
+        issue(last + R, last)  # at the barrier: every earlier step is done
+        for i, want in zip(range(last + 1, last + 3), need):
+            assert slot[i % R] == i and copies[i] == want, (Dh, L, i)
+        last += 2
+        in_flight.append(state["issued"] - 1 - last)
+    assert last == total - 1 and state["issued"] == total
+    return in_flight
+
+
+@pytest.mark.parametrize("L", [1, 16, 64, 101, 112, 113, 128])
+def test_wide_fused_bwd_ring_schedule(L):
+    """The wide fused backward's ring over Dh 65-599: 2 to 10 chunks, 6 slots
+    (4 at L 113-128). A block takes 3 steps a chunk (S; dP and dV; dK and
+    dQ), each of two copies, and each leaves R - 2 in flight until the list
+    runs out."""
+    R = fa.wide_fused_bwd_slots(L)
+    assert R >= 4
+    for Dh in range(65, 600):
+        nd = -(-Dh // 64)
+        in_flight = _simulate_wide_fused_bwd_ring(Dh, L)
+        assert in_flight == [min(R - 2, 6 * nd - 2 * j - 2) for j in range(3 * nd)], (Dh, L)
 
 
 @pytest.mark.parametrize("Dh,groups", [(64, 0), (65, 1), (128, 1), (129, 1), (256, 1),
@@ -552,12 +658,32 @@ _KERNEL_SHAPES = [
     (2, 101, 1, 257),
     (2, 70, 1, 320),
     (2, 1001, 2, 128),
+    # the wide fused backward (one block per batch row and head, any Dh at L
+    # <= 128): one chunk and a sliver (65, 72, 129), whole chunks (128, 192,
+    # 256), past one column group (257, 300); L 1 to 128, H 1 to 3
+    (3, 1, 2, 65),
+    (2, 16, 3, 72),
+    (4, 101, 1, 72),
+    (2, 127, 2, 128),
+    (2, 128, 1, 129),
+    (2, 101, 3, 192),
+    (2, 16, 1, 256),
+    (2, 128, 2, 257),
+    (2, 127, 1, 300),
+    (2, 1, 1, 300),
+    (2, 101, 2, 300),
 ]
 
 
-def _routes(route):
+def _routes(fused_takes):
     """The routes a shape can be forced onto: the long routes take any."""
-    return ("fused", "long") if route == "fused" else ("long",)
+    return ("fused", "long") if fused_takes else ("long",)
+
+
+def _fwd_fused_takes(L, H, Dh):
+    """Whether the fused forward kernel takes the shape (``fwd_route`` picks
+    it at fewer shapes above Dh 64)."""
+    return L <= fa.FUSED_MAX_L and fa.fwd_smem_bytes(L, H, Dh) <= fa.MAX_BLOCK_SMEM
 
 
 def _kernel_cases():
@@ -577,8 +703,8 @@ def _kernel_cases():
         shapes.append((3, L, H, Dh))
     cases = []
     for B, L, H, Dh in shapes:
-        for fwd in _routes(fa.fwd_route(L, H, Dh)):
-            for bwd in _routes(fa.bwd_route(L, H, Dh)):
+        for fwd in _routes(_fwd_fused_takes(L, H, Dh)):
+            for bwd in _routes(fa.bwd_route(L, H, Dh) == "fused"):
                 cases.append((B, L, H, Dh, fwd, bwd, "ragged"))
     for fwd in ("fused", "long"):
         for bwd in ("fused", "long"):
@@ -587,6 +713,10 @@ def _kernel_cases():
     for valid in ("all", "target_only"):  # the wide long backward, every piece live or few
         cases.append((4, 101, 1, 128, "fused", "long", valid))
         cases.append((4, 200, 2, 128, "long", "long", valid))
+    for valid in ("all", "target_only"):  # the wide fused backward: every tile listed, or few
+        cases.append((4, 101, 1, 128, "long", "fused", valid))
+        cases.append((4, 101, 1, 72, "fused", "fused", valid))
+        cases.append((2, 128, 2, 257, "long", "fused", valid))
     return cases
 
 
@@ -658,6 +788,45 @@ def test_wide_backward_is_bitwise_repeatable_and_counted(cuda_device, monkeypatc
     assert _counts() == {c: n[c] + want[c] for c in _COUNTERS}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,Dh", [(4, 101, 1, 72), (2, 101, 1, 128), (2, 101, 2, 256),
+                                      (2, 128, 1, 300), (3, 1, 2, 65)])
+def test_wide_fused_backward_is_bitwise_repeatable_and_counted(cuda_device, B, L, H, Dh):
+    """The wide fused backward, on the routes ``fwd_route`` and
+    ``bwd_route`` pick (fused for the backward at every L <= 128), gives the
+    same bits twice with one ``launches_bwd`` each and no long launch."""
+    fwd_route = fa.fwd_route(L, H, Dh)
+    assert fa.bwd_route(L, H, Dh) == "fused"
+    q, k, v, valid, _ = _inputs(B, L, H, Dh, seed=Dh + L)
+    cot = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+    n = _counts()
+    first = _port_grads(q, k, v, valid, cot, device=cuda_device)
+    second = _port_grads(q, k, v, valid, cot, device=cuda_device)
+    for a, b in zip(first, second):
+        assert np.array_equal(a, b)
+    want = _launched(fwd_route, "fused", times=2)
+    assert _counts() == {c: n[c] + want[c] for c in _COUNTERS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 101, 112, 113, 128])
+def test_wide_fused_bwd_kernel_does_not_spill(cuda_device, L):
+    """The wide fused backward keeps its sums (8 tiles of S^T or dP^T a
+    warp) and 32 columns of its output chunks in registers: no local memory
+    (no spills, no stack), at most 128 registers (up to 16 warps a block),
+    one block an SM at BST's L and above."""
+    import ctypes
+
+    fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_fused_wide_info
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    assert fn(L, 1, 128, ctypes.addressof(out)) == 0
+    registers, local_bytes, blocks = out
+    assert local_bytes == 0 and registers <= 128 and blocks >= 1
+    assert blocks == 1 or L < 101  # from L 101 one block fills an SM's registers
+    assert fn(L, 1, 64, ctypes.addressof(out)) != 0  # the narrow kernel's shapes are refused
+
+
 def _wide_fwd_cases():
     """(route, B, L, H, Dh, valid) for the wide forward kernels alone: the
     long one at Dh 65-520 (one column group and the first of two, Q resident
@@ -671,8 +840,8 @@ def _wide_fwd_cases():
             cases.append(("long", 2, L, 1 + i % 2, Dh, "ragged"))
     for Dh in (72, 128, 200, 520):
         for L in (1, 16, 101, 128):
-            H = max(h for h in (1, 2) if h == 1 or fa.fwd_route(L, h, Dh) == "fused")
-            if fa.fwd_route(L, H, Dh) == "fused":
+            H = max(h for h in (1, 2) if h == 1 or _fwd_fused_takes(L, h, Dh))
+            if _fwd_fused_takes(L, H, Dh):
                 cases.append(("fused", 3, L, H, Dh, "ragged"))
     for valid in ("all", "target_only"):
         cases += [("long", 2, 1001, 2, 128, valid), ("long", 2, 101, 2, 256, valid),
@@ -810,7 +979,9 @@ def test_fused_smem_bytes_matches_the_kernel(cuda_device):
 
     fn = _build.load("flash_attention_bwd").rtt_flash_attention_bwd_fused_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    for L, H, Dh in [(1, 1, 1), (101, 4, 9), (128, 4, 9), (128, 1, 64), (77, 3, 33), (128, 8, 64)]:
+    for L, H, Dh in [(1, 1, 1), (101, 4, 9), (128, 4, 9), (128, 1, 64), (77, 3, 33), (128, 8, 64),
+                     (101, 1, 72), (101, 1, 128), (101, 2, 256), (112, 3, 65), (113, 1, 300),
+                     (128, 4, 520), (1, 1, 65)]:
         assert fn(L, H, Dh) == fa.fused_smem_bytes(L, H, Dh)
 
 
