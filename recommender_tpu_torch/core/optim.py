@@ -48,6 +48,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from recommender_tpu_torch.core.profiling import annotate
 from recommender_tpu_torch.ops.rounding import (
     Key,
     fold_in,
@@ -162,7 +163,8 @@ class Optimizer(torch.optim.Optimizer):
 
     ``state_dict()`` is ``{"count", slot: [tensor per param], ...}``: the
     update count, and each state ``slot`` in param order, in its storage
-    dtype; ``load_state_dict`` copies them back in place."""
+    dtype; ``load_state_dict`` copies them back in place. Under a profiler
+    a step is an ``optimizer.step`` span (``core.profiling.annotate``)."""
 
     slots: tuple[str, ...] = ()
 
@@ -190,24 +192,25 @@ class Optimizer(torch.optim.Optimizer):
              grads: Optional[Sequence[torch.Tensor]] = None):
         group = self.param_groups[0]
         params = group["params"]
-        if grads is None:
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        elif len(grads) != len(params):
-            raise ValueError(f"{len(grads)} gradients for {len(params)} params")
-        upd = self._updates(params, grads)
-        lr = group["lr"](self.count) if callable(group["lr"]) else group["lr"]
-        upd = [-lr * u for u in upd]  # optax.scale_by_learning_rate
-        if self.scales is not None:  # optax.chain(base, _scale_updates_by_path)
-            upd = [u * s for u, s in zip(upd, self.scales)]
-        if self.stochastic:
-            if write_key is None:
-                raise ValueError("a stochastic-rounding param write needs write_key")
-            new_params = apply_updates_sr(params, upd, write_key, self.offsets)
-        else:  # optax.apply_updates
-            new_params = [(p.to(torch.float32) + u).to(p.dtype) for p, u in zip(params, upd)]
-        for p, p_new in zip(params, new_params):
-            p.copy_(p_new)
-        self.count += 1
+        with annotate("optimizer.step"):
+            if grads is None:
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            elif len(grads) != len(params):
+                raise ValueError(f"{len(grads)} gradients for {len(params)} params")
+            upd = self._updates(params, grads)
+            lr = group["lr"](self.count) if callable(group["lr"]) else group["lr"]
+            upd = [-lr * u for u in upd]  # optax.scale_by_learning_rate
+            if self.scales is not None:  # optax.chain(base, _scale_updates_by_path)
+                upd = [u * s for u, s in zip(upd, self.scales)]
+            if self.stochastic:
+                if write_key is None:
+                    raise ValueError("a stochastic-rounding param write needs write_key")
+                new_params = apply_updates_sr(params, upd, write_key, self.offsets)
+            else:  # optax.apply_updates
+                new_params = [(p.to(torch.float32) + u).to(p.dtype) for p, u in zip(params, upd)]
+            for p, p_new in zip(params, new_params):
+                p.copy_(p_new)
+            self.count += 1
 
     def _init_slot(self, name: str, fill: float = 0.0, dtype: Optional[torch.dtype] = None):
         for p in self.param_groups[0]["params"]:

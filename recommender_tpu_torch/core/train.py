@@ -96,6 +96,7 @@ from recommender_tpu_torch.core.optim import (
     has_low_precision_leaf,
     make_optimizer,
 )
+from recommender_tpu_torch.core.profiling import annotate
 from recommender_tpu_torch.data.pipeline import Prefetcher
 from recommender_tpu_torch.nn.losses import binary_cross_entropy
 from recommender_tpu_torch.ops.rounding import fold_in, prng_key
@@ -226,12 +227,14 @@ class Trainer:
         accum = max(int(self.cfg.accum_steps or 1), 1)
         params = state.optimizer.param_groups[0]["params"]
         if accum == 1:
-            per_ex, aux = self.loss_fn(batch, True)
-            loss = torch.mean(per_ex)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            # a param that took no part in the loss has a zero gradient, as in JAX
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            with annotate("model.forward"):
+                per_ex, aux = self.loss_fn(batch, True)
+                loss = torch.mean(per_ex)
+            with annotate("model.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                # a param that took no part in the loss has a zero gradient, as in JAX
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             metrics = dict(aux)
             metrics["loss"] = loss.detach()
         else:
@@ -274,14 +277,16 @@ class Trainer:
         for i in range(accum):
             micro = {k: v[i * (v.shape[0] // accum):(i + 1) * (v.shape[0] // accum)]
                      for k, v in batch.items()}
-            per_ex, aux = self.loss_fn(micro, True)
-            loss = torch.mean(per_ex)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            for acc, p in zip(sums, params):
-                if p.grad is not None:
-                    acc += p.grad.to(acc.dtype)
-                    p.grad = None
+            with annotate("model.forward"):
+                per_ex, aux = self.loss_fn(micro, True)
+                loss = torch.mean(per_ex)
+            with annotate("model.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                for acc, p in zip(sums, params):
+                    if p.grad is not None:
+                        acc += p.grad.to(acc.dtype)
+                        p.grad = None
             losses.append(loss.detach())
             auxes.append(aux)
         metrics = {k: torch.mean(torch.stack([torch.as_tensor(a[k]).to(torch.float32)
@@ -331,7 +336,10 @@ class Trainer:
         """``steps`` train steps from ``train_iter`` (host batches), with
         logs, evals, checkpoints and early stopping at the configured
         cadences. ``prefetch`` > 0 reads the stream that many batches ahead
-        in a background thread, closed on the way out; 0 reads it here."""
+        in a background thread, closed on the way out; 0 reads it here. The
+        loop takes no batch beyond the ``steps``-th (a prefetcher reads
+        ahead all the same). Under a profiler each step is a ``host.step``
+        span (``core.profiling``)."""
         prefetcher = None
         if prefetch:
             prefetcher = Prefetcher(train_iter, size=prefetch)
@@ -350,51 +358,60 @@ class Trainer:
         best = None
         stale_evals = 0
         sign = 1.0 if cfg.early_stop_mode == "max" else -1.0
-        for i, batch in enumerate(train_iter):
-            if i >= steps:
-                break
-            batch = self.put_batch(batch)
-            state, metrics = self.train_step(state, batch)
-            window_examples += _batch_size(batch) * self.mesh.data
-            step = i + 1
-            if step % cfg.log_every == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                if cfg.nan_guard and not math.isfinite(metrics.get("loss", 0.0)):
-                    raise TrainingDiverged(
-                        f"non-finite loss {metrics['loss']} at step {step}; "
-                        "restart with a lower learning rate"
-                    )
-                dt = time.perf_counter() - t0
-                metrics["examples_per_s"] = window_examples / max(dt, 1e-9)
-                metrics["step"] = step
-                history.append(metrics)
-                if log_fn:
-                    log_fn(metrics)
-                t0 = time.perf_counter()
-                window_examples = 0
-            if eval_iter_fn is not None and cfg.eval_every and step % cfg.eval_every == 0:
-                ev = self.evaluate(state, eval_iter_fn(), eval_batches)
-                ev["step"] = step
-                history.append(ev)
-                if log_fn:
-                    log_fn(ev)
-                # eval wall-clock must not pollute the throughput window
-                t0 = time.perf_counter()
-                window_examples = 0
-                if cfg.early_stop_patience:
-                    value = sign * ev.get(cfg.early_stop_metric, float("-inf"))
-                    if best is None or value > best:
-                        best = value
-                        stale_evals = 0
-                        if cfg.checkpoint_dir:
-                            self.save(state)  # best-only checkpointing
-                    else:
-                        stale_evals += 1
-                        if stale_evals >= cfg.early_stop_patience:
-                            history.append({"early_stopped": True, "step": step})
-                            break
-            if cfg.checkpoint_dir and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-                self.save(state)
+        batches = iter(train_iter)
+        queued = getattr(train_iter, "queued", None)  # a Prefetcher's
+        for i in range(steps):
+            with annotate("host.step") as step_span:
+                with annotate("host.input_wait") as wait:
+                    if wait.live and queued is not None:
+                        wait.add(queued=queued())
+                    batch = next(batches, _END)
+                if batch is _END:  # the fetch that found the stream's end is no step's
+                    step_span.drop()
+                    break
+                batch = self.put_batch(batch)
+                state, metrics = self.train_step(state, batch)
+                window_examples += _batch_size(batch) * self.mesh.data
+                step = i + 1
+                if step % cfg.log_every == 0:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    if cfg.nan_guard and not math.isfinite(metrics.get("loss", 0.0)):
+                        raise TrainingDiverged(
+                            f"non-finite loss {metrics['loss']} at step {step}; "
+                            "restart with a lower learning rate"
+                        )
+                    dt = time.perf_counter() - t0
+                    metrics["examples_per_s"] = window_examples / max(dt, 1e-9)
+                    metrics["step"] = step
+                    history.append(metrics)
+                    if log_fn:
+                        log_fn(metrics)
+                    t0 = time.perf_counter()
+                    window_examples = 0
+                if eval_iter_fn is not None and cfg.eval_every and step % cfg.eval_every == 0:
+                    ev = self.evaluate(state, eval_iter_fn(), eval_batches)
+                    ev["step"] = step
+                    history.append(ev)
+                    if log_fn:
+                        log_fn(ev)
+                    # eval wall-clock must not pollute the throughput window
+                    t0 = time.perf_counter()
+                    window_examples = 0
+                    if cfg.early_stop_patience:
+                        value = sign * ev.get(cfg.early_stop_metric, float("-inf"))
+                        if best is None or value > best:
+                            best = value
+                            stale_evals = 0
+                            if cfg.checkpoint_dir:
+                                self.save(state)  # best-only checkpointing
+                        else:
+                            stale_evals += 1
+                            if stale_evals >= cfg.early_stop_patience:
+                                history.append({"early_stopped": True, "step": step})
+                                break
+                if (cfg.checkpoint_dir and cfg.checkpoint_every
+                        and step % cfg.checkpoint_every == 0):
+                    self.save(state)
         return state, history
 
     @torch.no_grad()
@@ -557,14 +574,25 @@ class Trainer:
     def put_batch(self, batch: dict) -> dict:
         """Copy this rank's rows of the batch (numpy) to the trainer's
         device; nested dicts
-        (a dedup plan, ``batch["cat_dedup"]``) are copied entry by entry."""
-        return {
-            k: self.put_batch(v) if isinstance(v, dict)
-            else torch.as_tensor(np.asarray(v)).to(self.device)
-            for k, v in batch.items()
-        }
+        (a dedup plan, ``batch["cat_dedup"]``) are copied entry by entry.
+        Spanned as ``host.put_batch``, counting the leaves' bytes."""
+        with annotate("host.put_batch") as span:
+            return self._put(batch, span)
+
+    def _put(self, batch: dict, span) -> dict:
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, dict):
+                out[k] = self._put(v, span)
+                continue
+            host = torch.as_tensor(np.asarray(v))
+            if span.live:
+                span.add(bytes=host.nbytes)
+            out[k] = host.to(self.device)
+        return out
 
 
+_END = object()  # what the fit loop's fetch returns at the stream's end
 _CHECKPOINT_NAME = re.compile(r"step_(\d+)\.pt")
 SAVE_CHUNK_BYTES = 64 << 20  # each model rank's rows per gather of a checkpoint
 

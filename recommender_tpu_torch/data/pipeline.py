@@ -150,6 +150,11 @@ class Prefetcher:
             raise StopIteration
         return item
 
+    def queued(self) -> int:
+        """Batches waiting in the queue now (approximate, as any
+        ``Queue.qsize``)."""
+        return self._q.qsize()
+
     def close(self):
         self._stop.set()
         # drain so the producer unblocks quickly
