@@ -36,8 +36,10 @@ time between the two readings.
 The training loop's spans (``core.train``, ``core.optim``): ``host.step``
 around each step, with the children ``host.input_wait`` (count
 ``queued``: batches waiting in the prefetch queue), ``host.put_batch``
-(``bytes``: the leaves copied to the device), ``model.forward`` and
-``model.backward`` (per microbatch) and ``optimizer.step``.
+(``bytes``: the leaves copied to the device; on a CUDA device also
+``pageable_bytes``: those that reached it outside page-locked memory),
+``model.forward`` and ``model.backward`` (per microbatch) and
+``optimizer.step``.
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ interleave of worker streams, and dedup plans.
 ``interleave_ordered`` and ``with_dedup_plans`` are copies of
 ``recommender_tpu/data/pipeline.py``'s (the original module imports jax).
 They yield the same streams for the same seeds, ``start_batch`` included
-(``tests/test_torch_dedup.py``). Batches stay numpy in the producer
-threads; ``Trainer.put_batch`` copies them to the device on the consumer
-thread.
+(``tests/test_torch_dedup.py``). Batches stay on the host in the
+producer threads (numpy, or on a CUDA device pinned by the ``put_fn`` that
+``Trainer.fit`` gives, ``core.train.pin_batch``); ``Trainer.put_batch``
+copies them to the device on the consumer thread.
 """
 from __future__ import annotations
 
@@ -82,8 +83,8 @@ class Prefetcher:
         # a plain list passed as ``it`` is treated as one iterable of items
         # (a list of dict batches prefetches the batches, not their keys).
         # ``put_fn`` runs in the producer threads — host-side work only
-        # (batch assembly/encoding); the copy to the device stays on the
-        # consumer thread (see Trainer.fit).
+        # (batch assembly/encoding, pinning); the copy to the device stays
+        # on the consumer thread (see Trainer.fit).
         if workers is not None:
             if it is not None:
                 raise ValueError("pass either `it` or `workers=`, not both")
