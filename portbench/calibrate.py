@@ -9,7 +9,9 @@ needs none: the numbers come from the first steps).
 prints one JSON line a reading, ``{"kind", "seed", "numbers"}``: ``kind``
 ``program`` (a sound run against the reference), ``control`` (the
 reference in the nearest precision below the configuration's, put in the
-port's place) or a fault's name (``portbench.faults``), and a last line
+port's place) or a fault's name (``portbench.faults``; ``--faults``
+defaults to every fault the cell's family names in its ``FAULTS``, the
+shared ones and those its module defines), and a last line
 with the largest and smallest reading of each kind. Where ``--out`` is
 given the lines go to that file too, which ``portbench.limits`` turns into
 the cell's ``checks/<cell>.json``.
@@ -50,7 +52,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", default="1-12")
     ap.add_argument("--control-seeds", default="1-3")
     ap.add_argument("--fault-seeds", default="1-3")
-    ap.add_argument("--faults", default="")
+    ap.add_argument("--faults", default=None, help="comma-separated; default: the family's FAULTS")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -61,7 +63,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = bool(cfg["allow_tf32"])
     program, control = set(_seeds(args.seeds)), set(_seeds(args.control_seeds))
     fault_seeds = set(_seeds(args.fault_seeds))
-    fault_names = [f for f in args.faults.split(",") if f]
+    fault_names = (list(cell.family.FAULTS) if args.faults is None
+                   else [f for f in args.faults.split(",") if f])
     out = open(args.out, "a") if args.out else None
     summary: dict = {}
 
@@ -90,7 +93,7 @@ def main(argv=None) -> int:
             emit("control", seed, check.numbers(low, ref), loss=low.loss)
         if seed in fault_seeds:
             for name in fault_names:
-                with faults.plant(name) as plant:
+                with faults.plant(name, cell.family) as plant:
                     got = program_readings(cell, s, pool, device, plant)
                 emit(name, seed, check.numbers(got, ref), loss=got.loss)
     line = json.dumps({"summary": summary})

@@ -15,7 +15,18 @@
 * ``k1_calls(model, batch)``: K1's calls in a step on that batch, each a
   dict of ``roofline.k1_kernel_bytes``'s arguments;
 * ``k2_calls(model, batch)``: K2's calls in a step, each ``(valid [B, L],
-  heads, head_dim)``.
+  heads, head_dim)``;
+* ``FAULTS``: the names of the faults that apply to its cells, shared ones
+  (``portbench.faults``) and its own; ``OWN_FAULTS`` (optional): its own,
+  by name, as ``portbench.faults`` describes;
+* ``TINY``: its CPU test sizes, ``(model overrides, traffic overrides)``
+  (``portbench.tests.tiny``);
+* ``LAYERS`` (optional): layers of its step beyond the port's shared
+  kernels' (``portbench.trace.Layer``: by kernel names or prefixes, or by
+  the port span its kernels are launched in).
+
+So a new family is files alone: its module here and its reference in
+``portbench/reference/``.
 """
 
 

@@ -10,6 +10,9 @@ import torch
 from portbench.weights import Leaf
 
 KERNELS = ("sorted_scatter_add", "flash_attention", "flash_attention_bwd")
+FAULTS = ("frozen_state", "half_batch", "k1_altered", "k2_altered")
+TINY = (dict(item_vocab=500, cat_vocab=20, max_len=32),
+        dict(batch=32, pool_batches=4, history=20, warmup_steps=2, profile_steps=2))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -10,6 +10,9 @@ import torch
 from portbench.weights import Leaf
 
 KERNELS = ("sorted_scatter_add",)
+FAULTS = ("frozen_state", "half_batch", "k1_altered")
+TINY = (dict(vocab_size=26 * 40, cardinalities=[40] * 26),
+        dict(batch=64, pool_batches=4, warmup_steps=2, profile_steps=2))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

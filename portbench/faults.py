@@ -2,22 +2,30 @@
 check's limits, never in a benchmark run: each breaks the timed path in
 one way a training cell can be broken, and the check has to fail it.
 
+The shared faults, of the training loop and the port's shared kernels:
+
 * ``frozen_state``: the optimizer's step returns the state unchanged;
 * ``half_batch``: the loss is the mean over the batch's first half, the
   rest left out;
 * ``k1_altered``: the embedding gradient K1 produces comes out doubled;
 * ``k2_altered``: the attention output K2 produces has its first batch
-  row doubled (BST only).
+  row doubled.
 
-``plant(name)`` is a context manager: it patches the port's modules where
-the fault needs it, undoes that on exit, and yields the function that
-``harness.run`` applies to the program it builds (or None).
+A family names the faults that apply to its cells in its module's
+``FAULTS`` (``portbench.families``), and defines a fault of its own
+mechanism there, in ``OWN_FAULTS``: its name and a function of no
+arguments that returns a context manager yielding what ``plant`` yields.
+
+``plant(name, family)`` is a context manager: it looks in the family's
+module first, then at the shared faults; it patches the port's modules
+where the fault needs it, undoes that on exit, and yields the function
+that ``harness.run`` applies to the program it builds (or None).
 """
 from __future__ import annotations
 
 import contextlib
 
-FAULTS = ("frozen_state", "half_batch", "k1_altered", "k2_altered")
+SHARED = ("frozen_state", "half_batch", "k1_altered", "k2_altered")
 
 
 def _frozen_state(prog):
@@ -59,8 +67,12 @@ def _k2(old):
 
 
 @contextlib.contextmanager
-def plant(name: str):
-    if name == "frozen_state":
+def plant(name: str, family):
+    own = getattr(family, "OWN_FAULTS", {})
+    if name in own:
+        with own[name]() as fn:
+            yield fn
+    elif name == "frozen_state":
         yield _frozen_state
     elif name == "half_batch":
         yield _half_batch

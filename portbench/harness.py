@@ -137,6 +137,7 @@ class Program:
 
         cfg = cell.config
         self.device = device
+        self.layers = getattr(cell.family, "LAYERS", ())
         self.model, loss_fn = cell.family.build(cfg["model"], device)
         self.initial = weights.make(cell.family.leaves(cfg["model"]), s.weights, device)
         weights.load(self.model, self.initial)
@@ -209,7 +210,7 @@ class Program:
         path = tmpdir / "trace.json"
         try:
             prof.export_chrome_trace(str(path))
-            return tracing.Trace.load(path, len(batches), window_span)
+            return tracing.Trace.load(path, len(batches), window_span, self.layers)
         finally:
             path.unlink(missing_ok=True)
 

@@ -72,7 +72,8 @@ def cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
     reported = {m["name"] for m in end_to_end}
     per_layer = [m for m in bench["per_layer"]
                  if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
+    pkg = root / PKG.relative_to(ROOT)
     return Cell(name=name, chips=int(w["chips"]), config=_json(root / config_entry["file"]),
-                traffic=_json(PKG / "traffic" / f"{w['traffic']}.json"),
-                limits=_json(PKG / "checks" / f"{name}.json")["limits"],
+                traffic=_json(pkg / "traffic" / f"{w['traffic']}.json"),
+                limits=_json(pkg / "checks" / f"{name}.json")["limits"],
                 end_to_end=end_to_end, per_layer=per_layer)

@@ -3,7 +3,8 @@
 The port records its training loop's spans in memory
 (``recommender_tpu_torch.core.profiling.spans()``: ``host.step`` and its
 children ``host.input_wait``, ``host.put_batch``, ``model.forward``,
-``model.backward``, ``optimizer.step``), on ``time.time_ns()``. The trace
+``model.backward``, ``optimizer.step``, and whatever the port opens inside
+them, such as a family's ``model.recurrence``), on ``time.time_ns()``. The trace
 (``portbench.trace``) is on the profiler's clock, whose exported ``ts``
 may count from another base. ``align`` finds the offsets that put each
 traced step's program spans inside the benchmark's own spans around the
@@ -72,17 +73,21 @@ def of_run(r) -> Aligned | None:
 
 
 def align(trace, steps: int, records: list) -> Aligned | None:
-    """The last ``steps`` ``host.step`` records and their children, moved
-    to the trace's clock by the middle of the feasible offsets; None where
-    the counts differ or no offset nests every pair."""
+    """The last ``steps`` ``host.step`` records and all their descendants,
+    moved to the trace's clock by the middle of the feasible offsets; None
+    where the counts differ or no offset nests every pair."""
     roots = [x for x in records if x.name == STEP and x.parent is None][-steps:]
     if steps <= 0 or len(roots) != steps:
         return None
     origin = roots[0].start_ns
-    kids = {root.id: [] for root in roots}
+    kids = {root.id: [] for root in roots}  # each root's descendants, in the records' order
+    parent = {x.id: x.parent for x in records}
     for x in records:
-        if x.parent in kids:
-            kids[x.parent].append(x)
+        up = x.parent
+        while up is not None and up not in kids:
+            up = parent.get(up)
+        if up is not None:
+            kids[up].append(x)
 
     def us(ns):
         return (ns - origin) / 1000.0

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from portbench import check, faults, harness, limits
-from portbench.tests.tiny import cells, tiny_cell
+from portbench.tests.tiny import cell_faults, cells, tiny_cell
 
 
 @pytest.fixture(autouse=True)
@@ -32,23 +32,19 @@ def test_control_fails(name, seed):
     assert not correct, shown
 
 
-def _faults(name):
-    return [f for f in faults.FAULTS if f != "k2_altered" or name.startswith("bst")]
-
-
-@pytest.mark.parametrize("name, fault", [(n, f) for n in cells() for f in _faults(n)])
+@pytest.mark.parametrize("name, fault", cell_faults())
 def test_fault_fails_a_run(name, fault):
     cell = tiny_cell(name)
-    with faults.plant(fault) as plant:
+    with faults.plant(fault, cell.family) as plant:
         result = harness.run(cell, 99, 0.2, False, "cpu", time.perf_counter(), plant=plant)
     assert not result["correct"], result["check"]
 
 
 def test_frozen_state_reads_one():
-    cell = tiny_cell("dlrm_kaggle.b8192")
+    cell = tiny_cell(cells()[0])
     s = harness.seeds(4)
     pool = cell.generator.pool(cell.traffic, cell.config["model"], s.data, harness.CHECK_STEPS)
-    with faults.plant("frozen_state") as plant:
+    with faults.plant("frozen_state", cell.family) as plant:
         prog = harness.Program(cell, torch.device("cpu"), s, plant)
         got = prog.first_steps(pool)
     values = check.numbers(got, harness.reference_readings(cell, s, pool, "cpu"))

@@ -7,7 +7,7 @@ import torch
 from portbench import manifest, roofline
 from portbench.families import bst, dlrm, flops_per_example
 
-DLRM = manifest.cell("dlrm_kaggle.b8192")
+DLRM = manifest.cell("dlrm_kaggle.b65536")
 BST_LONG = manifest.cell("bst_taobao.T1000_b1024")
 BST_SHORT = manifest.cell("bst_taobao.T100_b1024")
 
@@ -79,8 +79,8 @@ def test_k2_bounds_match_chip_smoke(B, L, H, Dh):
 def test_k_calls_at_the_cells_shapes():
     ctr = DLRM.generator.pool(DLRM.traffic, DLRM.config["model"], 3, 1)[0]
     (call,) = dlrm.k1_calls(DLRM.config["model"], ctr)
-    assert call == dict(n=8192 * 26, unique=len(np.unique(ctr["cat_features"])), dim=16,
-                        update_bytes=4, order=True)
+    assert call == dict(n=DLRM.traffic["batch"] * 26, unique=len(np.unique(ctr["cat_features"])),
+                        dim=16, update_bytes=4, order=True)
     assert 1000 < call["unique"] < call["n"]
     batch = BST_SHORT.generator.pool(BST_SHORT.traffic, BST_SHORT.config["model"], 3, 1)[0]
     calls = bst.k1_calls(BST_SHORT.config["model"], batch)

@@ -53,11 +53,11 @@ def test_what_run_loads():
     code = ("import sys, portbench.run as r, portbench.harness, portbench.calibrate, "
             "portbench.faults\n"
             "from portbench import manifest\n"
+            "from portbench.tests.tiny import tiny_cell\n"
             "for w in manifest.load()['workloads']:\n"
-            "    c = manifest.cell(w['name']); c.family; c.reference; c.generator\n"
+            "    c = tiny_cell(w['name']); c.family; c.reference; c.generator\n"
             "    [manifest.metric_reader(m['name']) for m in c.per_layer]\n"
-            "    c.family.build\n"
-            "import recommender_tpu_torch.models.dlrm, recommender_tpu_torch.models.bst\n"
+            "    c.family.build(c.config['model'], 'cpu')\n"
             "import recommender_tpu_torch.core.train\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))\n"
             "print(r.loaded_forbidden())")

@@ -6,7 +6,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import manifest
+from portbench import faults, manifest
 
 BENCH = manifest.load()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -105,6 +105,10 @@ def test_cell_resolves_to_its_files(name):
         assert cell.traffic[key] > 0
     assert cell.traffic["pool_batches"] > 3  # the check's three steps differ
     assert cell.family.forward_macs and cell.family.k1_calls and cell.family.k2_calls
+    model, traffic = cell.family.TINY
+    assert set(model) <= set(cell.config["model"]) and set(traffic) <= set(cell.traffic)
+    own = getattr(cell.family, "OWN_FAULTS", {})
+    assert cell.family.FAULTS and set(cell.family.FAULTS) <= set(faults.SHARED) | set(own)
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])

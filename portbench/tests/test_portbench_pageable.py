@@ -35,7 +35,7 @@ def test_the_pageable_count_in_mb_a_step(monkeypatch, per_step, mb):
 
 
 def test_nothing_on_a_traced_run_on_the_cpu():
-    cell = tiny_cell("dlrm_kaggle.b8192")
+    cell = tiny_cell("dlrm_kaggle.b65536")
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:

@@ -69,7 +69,7 @@ def _records(steps=STEPS):
 
 
 def _readings(events=EVENTS, steps=2):
-    cell = tiny_cell("dlrm_kaggle.b8192")
+    cell = tiny_cell("dlrm_kaggle.b65536")
     tr = trace.Trace.parse(events, steps=steps, window_span="portbench.profiled")
     return harness.Readings(trace=tr, steps=steps, batches=[], model=cell.config["model"],
                             traffic=cell.traffic, family=cell.family, examples_per_s=1.0)

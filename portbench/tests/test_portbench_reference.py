@@ -32,7 +32,7 @@ def test_a_whole_run_is_correct(name):
     assert list(result["check"]) == list(cell.limits)
 
 
-@pytest.mark.parametrize("name", ["dlrm_kaggle.b8192", "bst_taobao.T1000_b1024"])
+@pytest.mark.parametrize("name", ["dlrm_kaggle.b65536", "bst_taobao.T1000_b1024"])
 def test_reference_follows_the_port(name):
     cell = tiny_cell(name)
     s = harness.seeds(5)
@@ -48,7 +48,7 @@ def test_reference_follows_the_port(name):
 
 
 def test_weights_fit_the_ports_parameters():
-    for name in ("dlrm_kaggle.b8192", "bst_taobao.T1000_b1024"):
+    for name in ("dlrm_kaggle.b65536", "bst_taobao.T1000_b1024"):
         cell = tiny_cell(name)
         model, _ = cell.family.build(cell.config["model"], "cpu")
         w = weights.make(cell.family.leaves(cell.config["model"]), 3, "cpu")
@@ -62,7 +62,7 @@ def test_weights_fit_the_ports_parameters():
 def test_sort_order_is_the_ports_leaf_order():
     from recommender_tpu_torch.convert import jax_leaf_order
 
-    for name in ("dlrm_kaggle.b8192", "bst_taobao.T1000_b1024"):
+    for name in ("dlrm_kaggle.b65536", "bst_taobao.T1000_b1024"):
         cell = tiny_cell(name)
         model, _ = cell.family.build(cell.config["model"], "cpu")
         ours = sorted((l.name for l in cell.family.leaves(cell.config["model"])),

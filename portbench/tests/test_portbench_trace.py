@@ -77,7 +77,7 @@ def test_metric_readers():
 def test_readers_return_nothing_where_nothing_ran():
     events = [e for e in EVENTS if "chunk_sum" not in e["name"] and "flash" not in e["name"]]
     tr = trace.Trace.parse(events, steps=1, window_span="portbench.profiled")
-    cell = tiny_cell("dlrm_kaggle.b8192")
+    cell = tiny_cell("dlrm_kaggle.b65536")
     r = Readings(trace=tr, steps=1, batches=[], model=cell.config["model"],
                  traffic=cell.traffic, family=cell.family, examples_per_s=1.0)
     assert manifest.metric_reader("embedding.k1_roofline")(r) is None

@@ -9,10 +9,14 @@ program is not edited.
 
 ``Trace.parse`` reads the profiler's Chrome trace: device operations
 (``kernel``, ``gpu_memcpy``, ``gpu_memset``), the host's launch calls
-(their ``correlation`` ties a kernel to the host span that launched it)
-and the spans. Each kernel gets a layer: ``embedding.k1`` and
-``attention.k2`` by the port's kernel names, ``optimizer`` where the
-launch was made inside ``portbench.optimizer``, else ``model``.
+(their ``correlation`` ties a kernel to the host span that launched it),
+the benchmark's spans and, in a list of their own, the port's
+(``core.profiling.annotate``: ``host.*``, ``model.*``, ``optimizer.*``).
+Each kernel gets a layer (``Layer``): first by its name, ``embedding.k1``
+and ``attention.k2`` for the port's shared kernels (``SHARED_LAYERS``),
+then the family's own layers that name kernels; then by the innermost span
+its launch was made in, ``optimizer`` for ``portbench.optimizer`` and a
+family's layer for the port span it names; else ``model``.
 """
 from __future__ import annotations
 
@@ -23,12 +27,37 @@ import json
 import re
 
 SPAN_PREFIX = "portbench."
+# the port's own spans (core.profiling.annotate), by their names' first word
+PORT_PREFIXES = ("host.", "model.", "optimizer.")
 # the port's hand-written kernels, by the function name the trace gives them
 K1_NAMES = ("chunk_sum_kernel", "join_kernel")  # ops/csrc/sorted_scatter_add.cu
 K2_PREFIXES = ("flash_fwd_", "flash_bwd_")  # ops/csrc/flash_attention*.cu
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _ANON = "(anonymous namespace)::"
 _BASE = re.compile(r"^[A-Za-z_][\w:]*")
+
+
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    """A layer of the step: the kernels whose base name (``base_name``) is
+    one of ``kernels`` or starts with one of ``prefixes``, and the kernels
+    launched inside a port span named ``span``.
+
+    A span claims a kernel by its launch's time alone, on whatever thread
+    either was recorded. On CUDA, autograd launches the backward's kernels
+    from a thread of its own while ``model.backward`` is open on the
+    caller's, so a span opened around a forward computation claims its
+    forward kernels only; its backward's land in ``model`` unless the port
+    opens the span inside that backward too (it then lies on autograd's
+    thread) or the layer names those kernels."""
+    name: str
+    kernels: tuple = ()
+    prefixes: tuple = ()
+    span: str | None = None
+
+
+SHARED_LAYERS = (Layer("embedding.k1", kernels=K1_NAMES),
+                 Layer("attention.k2", prefixes=K2_PREFIXES))
 
 
 def short_name(name: str) -> str:
@@ -94,27 +123,36 @@ class Trace:
     spans: list          # (name, ts, dur) of the benchmark's host spans
     window: tuple        # (start, end) in microseconds
     steps: int
+    port_spans: list = dataclasses.field(default_factory=list)  # (name, ts, dur), the port's
 
     @classmethod
-    def parse(cls, events: list, steps: int, window_span: str) -> "Trace":
-        launches, span_list, ops, window = {}, [], [], None
+    def parse(cls, events: list, steps: int, window_span: str, layers: tuple = ()) -> "Trace":
+        """``layers``: the family's own (``Layer``), beside ``SHARED_LAYERS``."""
+        launches, span_list, port_list, ops, window = {}, [], [], [], None
         for e in events:
             if e.get("ph") != "X":
                 continue
-            cat = e.get("cat", "")
-            if cat in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", ""):
+            cat, name = e.get("cat", ""), e.get("name", "")
+            if cat in ("cuda_runtime", "cuda_driver") and "Launch" in name:
                 corr = e.get("args", {}).get("correlation")
                 if corr is not None:
                     launches[corr] = float(e["ts"])
-            elif cat == "user_annotation" and e.get("name", "").startswith(SPAN_PREFIX):
-                if e["name"] == window_span:
+            elif cat == "user_annotation" and name.startswith(SPAN_PREFIX):
+                if name == window_span:
                     window = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                 else:
-                    span_list.append((e["name"], float(e["ts"]), float(e["dur"])))
+                    span_list.append((name, float(e["ts"]), float(e["dur"])))
+            elif cat == "user_annotation" and name.startswith(PORT_PREFIXES):
+                port_list.append((name, float(e["ts"]), float(e["dur"])))
         if window is None:
             raise ValueError(f"the trace has no {window_span} span")
-        opt = sorted((ts, ts + dur) for name, ts, dur in span_list
-                     if name == SPAN_PREFIX + "optimizer")
+        by_name = SHARED_LAYERS + tuple(layers)
+        by_span = [("optimizer", ts, ts + dur) for name, ts, dur in span_list
+                   if name == SPAN_PREFIX + "optimizer"]
+        for x in layers:
+            if x.span is not None:
+                by_span += [(x.name, ts, ts + dur) for name, ts, dur in port_list if name == x.span]
+        by_span.sort(key=lambda t: (t[1], -t[2]))  # of two that start together, the outer first
         for e in events:
             if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
                 continue
@@ -122,18 +160,20 @@ class Trace:
             if op.ts + op.dur <= window[0] or op.ts >= window[1]:
                 continue
             if op.cat == "kernel":
-                op.layer = _layer(op.name, launches.get(e.get("args", {}).get("correlation")), opt)
+                launched_at = launches.get(e.get("args", {}).get("correlation"))
+                op.layer = _layer(op.name, launched_at, by_name, by_span)
             ops.append(op)
         ops.sort(key=lambda o: o.ts)
         span_list.sort(key=lambda s: s[1])
-        return cls(ops, span_list, window, steps)
+        port_list.sort(key=lambda s: s[1])
+        return cls(ops, span_list, window, steps, port_list)
 
     @classmethod
-    def load(cls, path, steps: int, window_span: str) -> "Trace":
+    def load(cls, path, steps: int, window_span: str, layers: tuple = ()) -> "Trace":
         with open(path) as f:
             data = json.load(f)
         events = data["traceEvents"] if isinstance(data, dict) else data
-        return cls.parse(events, steps, window_span)
+        return cls.parse(events, steps, window_span, layers)
 
     # ------------------------------------------------------------ readings
     def kernels(self, layer: str | None = None) -> list:
@@ -198,16 +238,19 @@ class Trace:
                 "idle_gaps": [[self.host_at((a + b) / 2), (b - a) * 1e-6] for a, b in gaps]}
 
 
-def _layer(name: str, launched_at, optimizer_spans: list) -> str:
+def _layer(name: str, launched_at, by_name: tuple, by_span: list) -> str:
+    """The first layer of ``by_name`` that names the kernel; else the
+    innermost ``(layer, start, end)`` of ``by_span`` (sorted by start) open
+    at its launch; else ``model``."""
     base = base_name(name)
-    if base in K1_NAMES:
-        return "embedding.k1"
-    if base.startswith(K2_PREFIXES):
-        return "attention.k2"
+    for layer in by_name:
+        if base in layer.kernels or base.startswith(layer.prefixes):
+            return layer.name
+    inner = None
     if launched_at is not None:
-        for a, b in optimizer_spans:
+        for layer, a, b in by_span:
             if a > launched_at:
                 break
             if launched_at <= b:
-                return "optimizer"
-    return "model"
+                inner = layer
+    return inner or "model"
